@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-Builds the port's CUDA kernel from ``src/repro_torch/csrc`` and drives the
-paper's pipeline on the card, in phases:
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
+``nvcc`` per source, all started together) and drives the port on the
+card, in phases:
 
 0. card identity (name and power limit from ``nvidia-smi``) and kernel
    build time;
@@ -16,7 +17,20 @@ paper's pipeline on the card, in phases:
 4. the main path at full size: the default predictor (400 trees of depth 4
    per regressor), a CUDA ``PredictionService`` with ``prefetch_tables``,
    and the 100 000-job uniform stream on 8 devices (min-energy); then the
-   same on ``device="cpu"``, which must give identical records.
+   same on ``device="cpu"``, which must give identical records;
+5. the flash-attention and Mamba-1 scan kernels against their plain
+   PyTorch versions on the card: the reference test sweep's shapes, the
+   window and right-aligned cases, and the serving shapes (fp32 2e-5; bf16
+   one output ulp, 2**-7 relative);
+6. their per-call times at the serving shapes, beside the plain versions,
+   the bound, and for attention PyTorch's own SDPA as a yardstick;
+7. Mistral-NeMo-12B served at full width and depth (random bf16 weights
+   from a seed): 4 prompts of 2048 tokens, then 32 greedy decode steps
+   through ``greedy_generate``. Prefill and decode are timed apart; one
+   prefill is broken down by kernel (``torch.profiler``) and one decode
+   step timed on the card alone (CUDA-graph replay). Then the same model
+   at fp32 with 2 layers, cuda against cpu, logits within 1e-3;
+8. Falcon-Mamba-7B, the same way.
 
 Ends with a JSON line of per-kernel numbers, the card line, and
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
@@ -26,6 +40,8 @@ result, when CUDA is absent or any phase fails. Needs one card:
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import hashlib
 import json
 import pathlib
@@ -35,6 +51,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "schedule_traces.json"
@@ -43,10 +60,38 @@ GOLDEN = ROOT / "tests" / "golden" / "schedule_traces.json"
 #: tensor cores — the kernel compares and adds in fp64.
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
+#: ... and the dense bf16 tensor-core and fp32 (non-tensor) rates
+BF16_OPS_PER_S = 989e12
+FP32_OPS_PER_S = 67e12
 REL_TOL = 1e-12
 N_JOBS = 100_000
 N_DEVICES = 8
 ROW_SIZES = (1, 64, 512, 768, 4096, 65536)
+#: (atol, rtol). fp32: the reference sweep's tolerance, the summation
+#: order being the only difference; bf16: one ulp of the output, since
+#: kernel and plain version both compute in fp32 and round once.
+F32_TOL = (2e-5, 2e-5)
+BF16_TOL = (1e-6, 2.0 ** -7)
+#: cuda vs cpu logits of an fp32 model (O(1) logits; fp32 matmuls summed
+#: in another order differ by ~1e-5, a wrong kernel by O(1))
+CPU_TOL = (1e-3, 1e-3)
+#: (B, S, Hq, Hkv, hd), Sk (None: = S), options: tests/test_kernels.py's
+#: sweep, its windows, and right-aligned queries
+ATTN_SWEEP = (
+    ((1, 32, 4, 4, 16), None, {}), ((2, 64, 8, 2, 32), None, {}),
+    ((1, 128, 15, 5, 64), None, {}), ((1, 48, 6, 1, 80), None, {}),
+    ((2, 40, 4, 2, 128), None, {}),
+    ((1, 96, 4, 4, 32), None, {"window": 4}),
+    ((1, 96, 4, 4, 32), None, {"window": 16}),
+    ((1, 96, 4, 4, 32), None, {"window": 64}),
+    ((2, 5, 4, 2, 16), 40, {"window": 8}),
+)
+SCAN_SWEEP = ((1, 16, 8, 4), (2, 64, 32, 16), (1, 40, 24, 8), (2, 33, 20, 8))
+#: the serving shapes: Mistral-NeMo-12B's attention and Falcon-Mamba-7B's
+#: scan for 4 prompts of 2048 tokens
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
+SERVE_ATTN = (SERVE_BATCH, SERVE_PROMPT, 32, 8, 128)
+SERVE_SCAN = (SERVE_BATCH, SERVE_PROMPT, 8192, 16)
 
 
 def _check(ok: bool, what: str) -> None:
@@ -154,6 +199,281 @@ def _bound_ms(n: int, T: int, depth: int, F: int) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.3f}"
+
+
+def _device_breakdown(fn, top: int = 6) -> str:
+    """Card time of one call of ``fn`` by kernel, from ``torch.profiler``
+    (CUPTI): the busy total against the host wall, and the ``top`` kernels
+    by self device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # kernel events only: a CPU op carries its kernels' time as well
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows) / 1e3
+    if not rows:
+        return f"no device time recorded (wall {wall * 1e3:.3f} ms)"
+    parts = [f"{us / 1e3:.3f} ms x{n} {name[:70]}"
+             for us, n, name in rows[:top]]
+    return (f"card busy {busy:.3f} ms of {wall * 1e3:.3f} ms wall (profiled"
+            f"); top kernels: " + "; ".join(parts))
+
+
+def _reset(counters) -> None:
+    """Every kernel's launch count to 0, just before a path is driven."""
+    for mod in counters:
+        mod.launches = 0
+
+
+def _close(got: torch.Tensor, want: torch.Tensor, tol, what: str) -> float:
+    """Max |got - want|; raises unless |got - want| <= atol + rtol |want|
+    everywhere."""
+    atol, rtol = tol
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    _check(bool((err <= atol + rtol * w.abs()).all()),
+           f"{what}: max abs err {float(err.max())} beyond atol {atol}, "
+           f"rtol {rtol}")
+    return float(err.max())
+
+
+def _attn_inputs(seed, B, Sq, Hq, Hkv, hd, dtype, dev, Sk=None):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Sk = Sk or Sq
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((B, Sq, Hq, hd), (B, Sk, Hkv, hd),
+                          (B, Sk, Hkv, hd))]
+
+
+def _scan_inputs(seed, B, L, Di, N, dev):
+    """The reference sweep's distribution: u, B, C ~ N(0,1); dt =
+    softplus(N(0,1)) / 10; A = -exp(0.3 N(0,1)); D from 0.5 to 1.5."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa
+    return [rnd(B, L, Di), F.softplus(rnd(B, L, Di)) * 0.1,
+            -torch.exp(rnd(Di, N) * 0.3), rnd(B, L, N), rnd(B, L, N),
+            torch.linspace(0.5, 1.5, Di, device=dev)]
+
+
+def _attn_bound_ms(B, Sq, Sk, Hq, Hkv, hd, itemsize) -> tuple[float, str]:
+    """Least time for one causal call: q, k, v read and out written once
+    at HBM rate, or the two products over the live (query, key) pairs
+    (4 hd operations each) at the bf16 tensor-core rate."""
+    off = Sk - Sq
+    live = sum(min(Sk, max(0, i + off + 1)) for i in range(Sq))
+    ops = 4 * hd * B * Hq * live
+    nbytes = itemsize * (2 * B * Sq * Hq * hd + 2 * B * Sk * Hkv * hd)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _scan_bound_ms(B, L, Di, N) -> tuple[float, str]:
+    """Least time for one scan: u, dt, A, B, C, D read and y, h_last
+    written once at HBM rate (fp32), or the arithmetic — 7 operations per
+    state update (dt*A, exp, two products, a sum, h*C and its sum) and 3
+    per output (dt*u, D*u, a sum) — at the fp32 rate."""
+    nbytes = 4 * (3 * B * L * Di + Di * N + 2 * B * L * N + Di + B * Di * N)
+    ops = B * L * Di * (7 * N + 3)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _plain_attn(ref, q, k, v, **kw):
+    return ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), **kw).transpose(1, 2)
+
+
+def _kernels_vs_plain(dev, ops, ref) -> dict:
+    """Phase 5: both new kernels against their plain versions on the card.
+    Returns the serving shapes' inputs and max abs errors."""
+    print("== phase 5: flash_attention and mamba_scan kernels vs plain "
+          f"(fp32 tol {F32_TOL}, bf16 tol {BF16_TOL} as (atol, rtol))")
+    for (B, Sq, Hq, Hkv, hd), Sk, kw in ATTN_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _attn_inputs(1, B, Sq, Hq, Hkv, hd, dtype, dev, Sk)
+            got = ops.flash_attention(q, k, v, **kw)
+            want = _plain_attn(ref, q, k, v, **kw)
+            torch.cuda.synchronize()
+            tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+            err = _close(got, want, tol, f"attention {(B, Sq, Hq, Hkv, hd)}"
+                         f" Sk={Sk} {kw} {dtype}")
+            print(f"   attention B={B} Sq={Sq} Sk={Sk or Sq} Hq={Hq} "
+                  f"Hkv={Hkv} hd={hd} {kw} {str(dtype)[6:]}: {err:.3e}")
+    B, S, Hq, Hkv, hd = SERVE_ATTN
+    qkv = _attn_inputs(2, B, S, Hq, Hkv, hd, torch.bfloat16, dev)
+    got = ops.flash_attention(*qkv)
+    want = _plain_attn(ref, *qkv)
+    attn_err = _close(got, want, BF16_TOL, "attention at the serving shape")
+    print(f"   attention serving shape B={B} S={S} Hq={Hq} Hkv={Hkv} "
+          f"hd={hd} bf16: {attn_err:.3e}", flush=True)
+    del got, want
+    for shape in SCAN_SWEEP + (SERVE_SCAN,):
+        args = _scan_inputs(3, *shape, dev)
+        y, h = ops.mamba_scan(*args)
+        wy, wh = ref.mamba_scan_ref(*args)
+        torch.cuda.synchronize()
+        err = _close(y, wy, F32_TOL, f"scan y {shape}")
+        herr = _close(h, wh, F32_TOL, f"scan h_last {shape}")
+        print(f"   scan B,L,Di,N={shape}: y {err:.3e}, h_last {herr:.3e}",
+              flush=True)
+    return {"attn_inputs": qkv, "attn_err": attn_err, "scan_inputs": args,
+            "scan_err": err}
+
+
+def _kernel_times(ops, ref, p5, card) -> dict:
+    """Phase 6: per-call times at the serving shapes (CUDA events)."""
+    q, k, v = p5["attn_inputs"]
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    a_ms = _time_cuda(lambda: ops.flash_attention(q, k, v), 20)
+    a_plain = _time_cuda(lambda: _plain_attn(ref, q, k, v), 3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    a_lib = _time_cuda(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    a_bound, a_by = _attn_bound_ms(B, S, S, Hq, Hkv, hd, q.element_size())
+    args = p5["scan_inputs"]
+    s_ms = _time_cuda(lambda: ops.mamba_scan(*args), 10)
+    s_plain = _time_cuda(lambda: ref.mamba_scan_ref(*args), 2)
+    s_bound, s_by = _scan_bound_ms(*args[0].shape, args[2].shape[1])
+    print(f"== phase 6: per-call ms at the serving shapes (CUDA events); "
+          f"card {card}")
+    print(f"   flash_attention B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} bf16: "
+          f"kernel {a_ms:.6f}  plain {a_plain:.6f}  sdpa {a_lib:.6f}  "
+          f"bound {a_bound:.6f} ({a_by})  kernel/bound "
+          f"{a_ms / a_bound:.1f}")
+    print(f"   mamba_scan B,L,Di,N={tuple(args[0].shape)},"
+          f"{args[2].shape[1]} fp32: kernel {s_ms:.6f}  plain "
+          f"{s_plain:.6f}  bound {s_bound:.6f} ({s_by})  kernel/bound "
+          f"{s_ms / s_bound:.1f}", flush=True)
+    return {"flash_attention": dict(ms=a_ms, plain_ms=a_plain,
+                                    library_ms=a_lib, bound_ms=a_bound,
+                                    bound_by=a_by),
+            "mamba_scan": dict(ms=s_ms, plain_ms=s_plain, library_ms=None,
+                               bound_ms=s_bound, bound_by=s_by)}
+
+
+def _serve(arch: str, kernel, counters, dev, phase: int) -> dict:
+    """Phases 7 and 8: serve one model at full width and depth, then hold
+    the port on the card to the port on the CPU. Returns the launch counts
+    of greedy_generate's run, by kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import model_arrays, model_from_arrays
+    from repro_torch.models import model
+    from repro_torch.train import serve
+    cfg = get_config(arch)
+    B, S, steps = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
+    max_seq = S + steps + 1
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    prompt = np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    prefill = serve.make_prefill_step(cfg, max_seq, device=dev)
+    step = serve.make_serve_step(cfg, device=dev)
+    logits, cache = prefill(params, prompt)              # warm-up
+    _check(tuple(logits.shape) == (B, S, cfg.vocab_size)
+           and bool(torch.isfinite(logits).all()),
+           f"{arch}: prefill logits finite, of shape (B, S, vocab)")
+    del logits, cache
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, prompt)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+    toks = [tok]
+    del logits
+    prefill_profile = _device_breakdown(lambda: prefill(params, prompt))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, cache = step(params, cache, tok, S + i)
+        tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    _check(bool(torch.isfinite(logits).all()), f"{arch}: decode logits")
+    del logits
+    try:   # the card's own time for one step: captured once, replayed
+        step_dev_ms = _time_graph(lambda: step(params, cache, tok, S + steps),
+                                  1)
+    except RuntimeError as exc:  # a refused capture costs the number only
+        step_dev_ms = None
+        print(f"   decode step CUDA-graph capture refused: {exc}")
+    del cache
+
+    _reset(counters)                                     # the main path
+    t0 = time.perf_counter()
+    out = serve.greedy_generate(cfg, params, prompt, steps + 1, max_seq,
+                                device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in counters}
+    _check(kernel.launches > 0, f"{arch}: greedy_generate never launched "
+           f"{kernel.__name__}")
+    _check(tuple(out.shape) == (B, steps + 1) and out.dtype == torch.int32
+           and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+           f"{arch}: generated tokens")
+    same = bool(torch.equal(out, torch.cat(toks, dim=1)))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"== phase {phase}: {arch} ({n_params / 1e9:.3f} B params, "
+          f"{cfg.param_dtype}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}) on {dev}: init {init_s:.2f} s; {B} prompts x {S} "
+          f"tokens, prefill {prefill_s:.4f} s = {B * S / prefill_s:.1f} "
+          f"tokens/s; {steps} decode steps {decode_s:.4f} s = "
+          f"{B * steps / decode_s:.2f} tokens/s (host clock, synchronized);"
+          f" one decode step on the card alone (CUDA graph replay) "
+          f"{_fmt_ms(step_dev_ms)} ms of {decode_s / steps * 1e3:.3f} ms;"
+          f" greedy_generate({steps + 1} tokens) {gen_s:.4f} s, kernel "
+          f"launches {launches}, tokens equal to the timed loop's: {same}; "
+          f"peak device memory {peak:.2f} GiB", flush=True)
+    print(f"   one prefill by kernel: {prefill_profile}", flush=True)
+    del params, out, toks, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
+                               activation_dtype="float32")
+    p_cuda = model.init(cfg2, torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+    p_cpu = model_from_arrays(cfg2, model_arrays(p_cuda), device="cpu")
+    req = np.random.default_rng(13).integers(0, cfg.vocab_size, (1, 128))
+    errs = []
+    la, ca = model.prefill(cfg2, p_cuda, req, 160, cache_dtype=torch.float32,
+                           device=dev)
+    lb, cb = model.prefill(cfg2, p_cpu, req, 160, cache_dtype=torch.float32,
+                           device="cpu")
+    errs.append(_close(la.cpu(), lb, CPU_TOL, f"{arch}: prefill cuda vs cpu"))
+    nxt = lb[:, -1:].argmax(dim=-1)
+    da, _ = model.decode_step(cfg2, p_cuda, ca, nxt, 128, device=dev)
+    db, _ = model.decode_step(cfg2, p_cpu, cb, nxt, 128, device="cpu")
+    errs.append(_close(da.cpu(), db, CPU_TOL, f"{arch}: decode cuda vs cpu"))
+    print(f"   {arch} fp32, 2 layers, full width, one 128-token request: "
+          f"cuda vs cpu logits max abs err prefill {errs[0]:.3e}, decode "
+          f"{errs[1]:.3e} (tol {CPU_TOL}; TF32 off)", flush=True)
+    del p_cuda, p_cpu, la, lb, ca, cb, da, db
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
@@ -170,19 +490,25 @@ def main() -> int:
     from repro_torch.core.features import clock_features
     from repro_torch.core.gbdt import GBDTParams
     from repro_torch.core.policies import POLICY_NAMES
-    from repro_torch.kernels import gbdt_predict as gp
+    from repro_torch.kernels import build, gbdt_predict as gp
+    from repro_torch.kernels import flash_attention as fa, mamba_scan as ms
     from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = (gp, fa, ms)
     card = _card_line()
     print(f"== phase 0: card {card}; torch {torch.__version__} "
           f"(CUDA {torch.version.cuda}); "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    gp.build()
+    for mod in counters:
+        mod.build()
     print(f"   kernel build {time.perf_counter() - t0:.2f} s", flush=True)
-    for line in (gp.build_log or "cached library").splitlines():
-        if "registers" in line or "spill" in line or "cached" in line:
+    for line in (build.build_log or "cached library").splitlines():
+        if any(w in line for w in ("==", "entry", "registers", "spill",
+                                   "cached")):
             print(f"   {line.strip()}")
 
     # -- fixtures (host numpy): profiling campaign + production predictor --
@@ -284,7 +610,7 @@ def main() -> int:
     gcfg = PredictorConfig(gbdt=GBDTParams(l2_leaf_reg=5.0, **g),
                            gbdt_time=GBDTParams(l2_leaf_reg=3.0, **g))
     gpred = EnergyTimePredictor(gcfg, device=dev).fit(X, yp, yt)
-    gp.launches = 0
+    _reset(counters)
     matched = 0
     for policy in POLICY_NAMES:
         for seed in (0, 1):
@@ -314,7 +640,7 @@ def main() -> int:
     for label, p in (("cuda", pred),
                      ("cpu", predictor_from_arrays(predictor_arrays(pred),
                                                    device="cpu"))):
-        gp.launches = 0
+        _reset(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         svc = PredictionService(V5E_DVFS, predictor=p, app_features=feats,
@@ -344,8 +670,16 @@ def main() -> int:
     print(f"   cuda and cpu runs record-identical over {N_JOBS} jobs; "
           "tables bitwise equal", flush=True)
 
+    p5 = _kernels_vs_plain(dev, ops, ref)
+    times = _kernel_times(ops, ref, p5, card)
+    attn_err, scan_err = p5["attn_err"], p5["scan_err"]
+    del p5
+    served = {"flash_attention": _serve("mistral-nemo-12b", fa, counters,
+                                        dev, 7),
+              "mamba_scan": _serve("falcon-mamba-7b", ms, counters, dev, 8)}
+
     t768 = timing[768]
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": "gbdt_predict",
         "route": "cuda",
         "source": "src/repro_torch/csrc/gbdt_predict.cu",
@@ -357,7 +691,16 @@ def main() -> int:
         "bound_ms": t768["bound_ms"],
         "bound_by": t768["bound_by"],
         "library_ms": None,
-    }]}))
+    }]
+    for name, line, err in (("flash_attention", 116, attn_err),
+                            ("mamba_scan", 72, scan_err)):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{name}.py:{line}",
+            "launches": served[name][name],
+            "max_abs_err": err, **times[name]})
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,197 @@
+"""Model configuration schema shared by all assigned architectures.
+
+A copy of the reference's schema, field for field, so that a reference
+config carries over to the port as ``ModelConfig(**dataclasses.asdict(c))``.
+Fields that steer the reference's sharding, remat, scan and optimizer
+(``remat``, ``scan_layers``, ``opt_state_dtype``, ``fsdp_over_pod``,
+``grad_accum_dtype``) are carried but read by nothing the port has yet."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None           # default d_model // n_heads
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    qkv_bias: bool = False                   # Qwen2.5
+    tie_embeddings: bool = False             # SmolLM
+    sliding_window: Optional[int] = None     # Mixtral SWA
+    # --- MoE ---------------------------------------------------------- #
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    n_shared_experts: int = 0                # Kimi-K2 shared expert
+    moe_d_ff: int = 0                        # per-expert hidden (0 → d_ff)
+    first_dense_layers: int = 0              # Kimi: layer 0 dense
+    # --- SSM (Mamba) ---------------------------------------------------- #
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    mamba_version: int = 1                   # 1: falcon-mamba, 2: zamba2
+    ssm_head_dim: int = 64                   # mamba2
+    # --- hybrid (Zamba2): shared attention block every k mamba blocks -- #
+    hybrid_attn_period: int = 0
+    # --- encoder-decoder (Whisper) -------------------------------------- #
+    n_encoder_layers: int = 0
+    encoder_seq: int = 0                     # stub frame count (1500)
+    # --- VLM (InternVL2): stub patch embeddings -------------------------- #
+    vision_tokens: int = 0
+    # --- numerics / execution ------------------------------------------- #
+    param_dtype: str = "bfloat16"
+    activation_dtype: str = "bfloat16"
+    remat: str = "full"                      # none | full
+    # the reference's route switch; the port routes nothing by it: its
+    # full-sequence attention and Mamba-1 prefill always take the kernels
+    # (ops.flash_attention, ops.mamba_scan), as the reference's "flash" does
+    attn_impl: str = "xla"
+    scan_layers: bool = True
+    # optimizer-state dtype: "float32" or "int8" (blockwise, for 1T-scale)
+    opt_state_dtype: str = "float32"
+    # shard the FSDP dim over ('data','pod') instead of 'data' alone —
+    # ZeRO-3 across DCN; needed to fit 1T-param training on 2 pods
+    fsdp_over_pod: bool = False
+    # microbatch gradient-accumulator dtype (bf16 halves the largest
+    # training buffer at 1T scale; error ~2^-8 per add, n_microbatch small)
+    grad_accum_dtype: str = "float32"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.n_heads if self.n_heads else 0
+
+    @property
+    def resolved_moe_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    # ------------------------------------------------------------------ #
+    def param_count(self) -> int:
+        """Analytic parameter count (drives MODEL_FLOPS and memory checks)."""
+        D, V = self.d_model, self.vocab_size
+        hd = self.resolved_head_dim
+        n = V * D  # embedding
+        if not self.tie_embeddings:
+            n += V * D
+        att = D * self.n_heads * hd + 2 * D * self.n_kv_heads * hd \
+            + self.n_heads * hd * D
+        mlp_dense = 3 * D * self.d_ff
+        if self.family in ("dense", "vlm"):
+            n += self.n_layers * (att + mlp_dense + 2 * D)
+        elif self.family == "moe":
+            F = self.resolved_moe_d_ff
+            moe = self.n_experts * 3 * D * F + D * self.n_experts \
+                + self.n_shared_experts * 3 * D * F
+            dense_l = self.first_dense_layers
+            n += dense_l * (att + mlp_dense + 2 * D)
+            n += (self.n_layers - dense_l) * (att + moe + 2 * D)
+        elif self.family == "ssm":
+            Di, N = self.d_inner, self.ssm_state
+            dt_rank = max(D // 16, 1)
+            blk = D * 2 * Di + Di * self.ssm_conv + Di * (dt_rank + 2 * N) \
+                + dt_rank * Di + Di * N + Di + Di * D + D
+            n += self.n_layers * blk
+        elif self.family == "hybrid":
+            Di, N = self.d_inner, self.ssm_state
+            H = max(Di // self.ssm_head_dim, 1)
+            blk = D * 2 * Di + Di * self.ssm_conv + Di * N * 2 + 2 * H \
+                + Di * D + 2 * D
+            n += self.n_layers * blk
+            if self.hybrid_attn_period:
+                n += att + mlp_dense + 2 * D  # one shared block
+        elif self.family == "audio":
+            enc_blk = att + mlp_dense + 2 * D
+            dec_blk = att * 2 + mlp_dense + 3 * D  # self + cross attn
+            n += self.n_encoder_layers * enc_blk + self.n_layers * dec_blk
+        n += D  # final norm
+        return n
+
+    def active_param_count(self) -> int:
+        """Per-token active parameters (MoE: top-k + shared experts only)."""
+        if self.family != "moe":
+            return self.param_count()
+        F = self.resolved_moe_d_ff
+        full_moe = self.n_experts * 3 * self.d_model * F
+        active_moe = (self.top_k + self.n_shared_experts) * 3 * self.d_model * F
+        n_moe_layers = self.n_layers - self.first_dense_layers
+        return self.param_count() - n_moe_layers * (full_moe - active_moe)
+
+
+def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
+    """Tiny same-family config for CPU smoke tests."""
+    kv = min(cfg.n_kv_heads, 2) if cfg.n_kv_heads else 0
+    heads = 4 if cfg.n_heads else 0
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-smoke",
+        n_layers=min(cfg.n_layers, 4),
+        d_model=64,
+        n_heads=heads,
+        n_kv_heads=kv,
+        head_dim=16 if cfg.n_heads else None,
+        d_ff=128,
+        vocab_size=256,
+        n_experts=min(cfg.n_experts, 4),
+        top_k=min(cfg.top_k, 2),
+        capacity_factor=4.0,  # no capacity drops at smoke scale (tested
+                              # separately) so full-seq == prefill+decode
+        moe_d_ff=64 if cfg.n_experts else 0,
+        n_shared_experts=min(cfg.n_shared_experts, 1),
+        first_dense_layers=min(cfg.first_dense_layers, 1),
+        ssm_state=min(cfg.ssm_state, 8),
+        ssm_expand=2,
+        ssm_head_dim=16,
+        hybrid_attn_period=2 if cfg.hybrid_attn_period else 0,
+        n_encoder_layers=min(cfg.n_encoder_layers, 2),
+        encoder_seq=16 if cfg.encoder_seq else 0,
+        vision_tokens=8 if cfg.vision_tokens else 0,
+        sliding_window=8 if cfg.sliding_window else None,
+        param_dtype="float32",
+        activation_dtype="float32",
+        remat="none",
+    )
+
+
+# ---------------------------------------------------------------------- #
+#  Input shapes assigned to every LM-family architecture
+# ---------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """Whether (arch, shape) is a valid dry-run cell (DESIGN.md §5)."""
+    if shape.name == "long_500k":
+        sub_quadratic = (
+            cfg.family in ("ssm", "hybrid")
+            or cfg.sliding_window is not None
+        )
+        if not sub_quadratic:
+            return False, "full quadratic attention — long_500k skipped"
+    return True, ""

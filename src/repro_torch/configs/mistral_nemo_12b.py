@@ -1,0 +1,9 @@
+"""Mistral-Nemo-12B: dense GQA, head_dim 128 explicit, 128k context
+[hf:mistralai/Mistral-Nemo-Base-2407]. Full attention => long_500k skipped."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mistral-nemo-12b", family="dense",
+    n_layers=40, d_model=5120, n_heads=32, n_kv_heads=8, head_dim=128,
+    d_ff=14336, vocab_size=131072, rope_theta=1e6,
+)

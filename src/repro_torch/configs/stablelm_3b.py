@@ -1,0 +1,8 @@
+"""StableLM-2-class 3B dense transformer [hf:stabilityai/stablelm-2-1_6b]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-3b", family="dense",
+    n_layers=32, d_model=2560, n_heads=32, n_kv_heads=32,
+    d_ff=6912, vocab_size=50304,
+)

@@ -1,4 +1,4 @@
-"""Carry a fitted predictor's weights between packages as plain arrays.
+"""Carry weights between packages (and devices) as plain arrays.
 
 :func:`predictor_arrays` reads the parameters of any fitted
 ``EnergyTimePredictor`` — the reference's or the port's — by attribute,
@@ -13,6 +13,14 @@ Per regressor (``"power"``, ``"time"``) the arrays are the GBDT's ``base``,
 target encoder's ``prior_``, ``cat_cols_`` and ``maps_``; ``"config"``
 holds the ``PredictorConfig`` fields, with each ``GBDTParams`` as a dict.
 Only GBDT-family predictors (``catboost``, ``xgboost``) carry over.
+
+:func:`model_from_arrays` builds the port's model module from the
+reference's parameter tree as numpy arrays (nested dicts, the repeated
+layers stacked on a leading axis, any float dtype, cast to
+``cfg.param_dtype``); :func:`model_arrays` is its inverse and returns fp32
+arrays (numpy has no bf16; the cast is exact). Both packages keep a
+projection as ``(in, out)``, so every leaf is a plain copy: the tree path
+``layers/attn/wq`` of layer 3 is the parameter ``layers.3.attn.wq``.
 """
 from __future__ import annotations
 
@@ -23,9 +31,13 @@ import torch
 
 from .core.gbdt import GBDTModel, GBDTParams, OrderedTargetEncoder
 from .core.predictor import EnergyTimePredictor, PredictorConfig
-from .device import DEFAULT_DEVICE
+from .device import DEFAULT_DEVICE, resolve_device
+from .models import model as model_lib
+from .models.ssm_lm import MambaLM
+from .models.transformer import DenseLM
 
-__all__ = ["predictor_arrays", "predictor_from_arrays"]
+__all__ = ["model_arrays", "model_from_arrays", "predictor_arrays",
+           "predictor_from_arrays"]
 
 _GBDT_FIELDS = ("gbdt", "gbdt_time")
 
@@ -94,3 +106,73 @@ def predictor_from_arrays(arrays: dict,
             e.maps_ = [dict(m) for m in enc["maps_"]]
             target.enc = e
     return pred
+
+
+def _flatten(tree, prefix=""):
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, dict):
+            yield from _flatten(val, path + ".")
+        else:
+            yield path, val
+
+
+@torch.no_grad()
+def model_from_arrays(cfg, arrays: dict, device=DEFAULT_DEVICE):
+    """The port's model for ``cfg`` on ``device``, with every parameter
+    copied from ``arrays`` (the reference's parameter tree as numpy)."""
+    model_lib._family_module(cfg)          # raises for unported families
+    dev = resolve_device(device)
+    module = {"dense": DenseLM, "ssm": MambaLM}[cfg.family](cfg, dev)
+    params = dict(module.named_parameters())
+    filled = set()
+
+    def put(name, arr):
+        if name not in params:
+            raise KeyError(f"no parameter {name!r} in the {cfg.family} model")
+        p = params[name]
+        t = torch.tensor(np.asarray(arr))
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: array shape {tuple(t.shape)} != "
+                             f"parameter shape {tuple(p.shape)}")
+        p.copy_(t.to(device=dev, dtype=p.dtype))
+        filled.add(name)
+
+    for path, arr in _flatten(arrays):
+        if path.startswith("layers."):
+            if len(arr) != cfg.n_layers:
+                raise ValueError(f"{path}: {len(arr)} stacked layers, the "
+                                 f"config has {cfg.n_layers}")
+            for i in range(cfg.n_layers):
+                put(f"layers.{i}.{path[len('layers.'):]}", arr[i])
+        else:
+            put(path, arr)
+    missing = sorted(set(params) - filled)
+    if missing:
+        raise KeyError(f"arrays give no value for {missing}")
+    return module
+
+
+def model_arrays(module) -> dict:
+    """The parameter tree of a port model as fp32 numpy arrays, the
+    repeated layers stacked on a leading axis (the reference's layout)."""
+    tree: dict = {}
+    for name, p in module.named_parameters():
+        parts = name.split(".")
+        arr = p.detach().float().cpu().numpy()
+        if parts[0] == "layers":
+            node = tree.setdefault("layers", {})
+            for key in parts[2:-1]:
+                node = node.setdefault(key, {})
+            node.setdefault(parts[-1], []).append(arr)
+        else:
+            node = tree
+            for key in parts[:-1]:
+                node = node.setdefault(key, {})
+            node[parts[-1]] = arr
+
+    def stack(node):
+        return {k: stack(v) if isinstance(v, dict) else
+                (np.stack(v) if isinstance(v, list) else v)
+                for k, v in node.items()}
+    return stack(tree)

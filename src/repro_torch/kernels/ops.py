@@ -1,29 +1,38 @@
 """Public wrappers around the port's kernels.
 
-:func:`gbdt_predict` keeps the reference wrapper's API
-(``repro/kernels/ops.py``: ``gbdt_predict(X, feats, thresholds, leaves,
-base)`` and ``gbdt_predict_model(model, X)``) but takes torch tensors and
-computes in fp64. It checks every argument and raises on what the kernel
-does not take. A CUDA tensor launches the hand-written kernel
-(:mod:`repro_torch.kernels.gbdt_predict`) or raises — there is no fallback.
-A CPU tensor takes the kernel's plain version
-(:func:`repro_torch.kernels.ref.gbdt_predict_ref`), which agrees with the
-kernel bit for bit. Ragged ``n`` and ``T`` are handled inside the kernel:
-nothing is padded here.
+Each wrapper keeps the reference wrapper's API (``repro/kernels/ops.py``)
+but takes torch tensors. It checks every argument and raises on what the
+kernel does not take. A CUDA tensor launches the hand-written kernel or
+raises — there is no fallback. A CPU tensor takes the kernel's plain
+version (:mod:`repro_torch.kernels.ref`). Ragged sizes are handled inside
+the kernels: nothing is padded here.
+
+* :func:`gbdt_predict` (and :func:`gbdt_predict_model`) computes in fp64;
+  kernel and plain version agree bit for bit.
+* :func:`flash_attention` takes the model layout ``(B, S, H, hd)``, which
+  the kernel reads in place, in fp32 or bf16.
+* :func:`mamba_scan` takes fp32 inputs and returns ``(y, h_last)``, the
+  final state written by the kernel from the state it carries.
+
+The attention and scan kernels are forward-only, like the reference's: an
+input that requires grad raises rather than being silently detached.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import flash_attention as _fa
 from . import gbdt_predict as _gp
-from .ref import gbdt_predict_ref
+from . import mamba_scan as _ms
+from .ref import flash_attention_ref, gbdt_predict_ref, mamba_scan_ref
 
-__all__ = ["gbdt_predict", "gbdt_predict_model"]
+__all__ = ["flash_attention", "gbdt_predict", "gbdt_predict_model",
+           "mamba_scan"]
 
 
 def _check(name: str, t, dtype: torch.dtype, ndim: int,
-           device: torch.device) -> None:
+           device: torch.device, anchor: str = "X") -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got "
                         f"{type(t).__name__}")
@@ -33,9 +42,32 @@ def _check(name: str, t, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must be {ndim}-D, got shape "
                          f"{tuple(t.shape)}")
     if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, X is on {device}")
+        raise ValueError(f"{name} is on {t.device}, {anchor} is on {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _device_of(name: str, t) -> torch.device:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got "
+                        f"{type(t).__name__}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device
+
+
+def _forward_only(**tensors) -> None:
+    for name, t in tensors.items():
+        if t.requires_grad:
+            raise ValueError(
+                f"{name} requires grad: the kernel is forward-only (no "
+                "backward exists); run under torch.no_grad() or detach")
+
+
+def _positive(**dims) -> None:
+    for name, n in dims.items():
+        if n < 1:
+            raise ValueError(f"{name} must be >= 1, got {n}")
 
 
 def gbdt_predict(X: torch.Tensor, feats: torch.Tensor,
@@ -48,11 +80,7 @@ def gbdt_predict(X: torch.Tensor, feats: torch.Tensor,
     and on one device, ``D <= 8``. Returns (n,) float64 on that device.
     On CUDA a feature index outside ``[0, F)`` yields NaN for the row (the
     kernel never reads out of bounds); on the CPU it raises."""
-    if not isinstance(X, torch.Tensor):
-        raise TypeError(f"X must be a torch.Tensor, got {type(X).__name__}")
-    dev = X.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
+    dev = _device_of("X", X)
     _check("X", X, torch.float64, 2, dev)
     _check("feats", feats, torch.int32, 2, dev)
     _check("thresholds", thresholds, torch.float64, 2, dev)
@@ -88,3 +116,85 @@ def gbdt_predict_model(model, X) -> np.ndarray:
     Xt = X.to(device=feats.device, dtype=torch.float64).contiguous()
     return gbdt_predict(Xt, feats, thresholds, leaves,
                         model.base).cpu().numpy()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window=None) -> torch.Tensor:
+    """Causal / sliding-window GQA flash attention in the model layout.
+
+    q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd); one dtype (float32 or
+    bfloat16), one device, contiguous; ``Hq % Hkv == 0``, ``hd <= 128``;
+    ``window`` None or a positive int. Queries are right-aligned at
+    position ``i + Sk - Sq``; a row with no live key gives 0. Returns
+    (B, Sq, Hq, hd) in q's dtype."""
+    dev = _device_of("q", q)
+    dtype = q.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be torch.float32 or torch.bfloat16, got "
+                        f"{dtype}")
+    _check("q", q, dtype, 4, dev, anchor="q")
+    _check("k", k, dtype, 4, dev, anchor="q")
+    _check("v", v, dtype, 4, dev, anchor="q")
+    _forward_only(q=q, k=k, v=v)
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"v shape {tuple(v.shape)} != k shape "
+                         f"{tuple(k.shape)}")
+    if k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"k shape {tuple(k.shape)} does not match q shape "
+                         f"{tuple(q.shape)} in batch or head dim")
+    _positive(B=B, Sq=Sq, Sk=Sk, Hq=Hq, Hkv=Hkv, hd=hd)
+    if Hq % Hkv:
+        raise ValueError(f"{Hq} query heads are not a multiple of {Hkv} "
+                         "kv heads")
+    if hd > _fa.MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} exceeds the kernel's maximum of "
+                         f"{_fa.MAX_HEAD_DIM}")
+    if window is not None and (isinstance(window, bool)
+                               or not isinstance(window, int) or window < 1):
+        raise ValueError(f"window must be None or a positive int, got "
+                         f"{window!r}")
+    if dev.type == "cpu":
+        out = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=causal,
+                                  window=window)
+        return out.transpose(1, 2).contiguous()
+    out = torch.empty_like(q)
+    _fa.launch(q, k, v, out, bool(causal), window)
+    return out
+
+
+def mamba_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+               Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor):
+    """Mamba-1 selective scan from a zero state.
+
+    u, dt: (B, L, Di); A: (Di, N); Bm, Cm: (B, L, N); D: (Di,); all
+    float32, on one device, contiguous; ``N <= 64``. Returns (y (B, L, Di),
+    h_last (B, Di, N)), both float32."""
+    dev = _device_of("u", u)
+    f32 = torch.float32
+    _check("u", u, f32, 3, dev, anchor="u")
+    _check("dt", dt, f32, 3, dev, anchor="u")
+    _check("A", A, f32, 2, dev, anchor="u")
+    _check("Bm", Bm, f32, 3, dev, anchor="u")
+    _check("Cm", Cm, f32, 3, dev, anchor="u")
+    _check("D", D, f32, 1, dev, anchor="u")
+    _forward_only(u=u, dt=dt, A=A, Bm=Bm, Cm=Cm, D=D)
+    B, L, Di = u.shape
+    N = A.shape[1]
+    for name, t, want in (("dt", dt, (B, L, Di)), ("A", A, (Di, N)),
+                          ("Bm", Bm, (B, L, N)), ("Cm", Cm, (B, L, N)),
+                          ("D", D, (Di,))):
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {want}")
+    _positive(B=B, L=L, Di=Di, N=N)
+    if N > _ms.MAX_STATE:
+        raise ValueError(f"state size {N} exceeds the kernel's maximum of "
+                         f"{_ms.MAX_STATE}")
+    if dev.type == "cpu":
+        return mamba_scan_ref(u, dt, A, Bm, Cm, D)
+    y = torch.empty_like(u)
+    h_last = torch.empty((B, Di, N), dtype=f32, device=dev)
+    _ms.launch(u, dt, A, Bm, Cm, D, y, h_last)
+    return y, h_last

@@ -11,16 +11,25 @@ gbdt_predict`) uses this version for CPU tensors.
 :func:`gbdt_predict_numpy` is the host-side alternative to a launch — the
 reference's numpy ``GBDTModel.predict`` formula — kept as the baseline for
 the per-row crossover measurement.
+
+:func:`flash_attention_ref` and :func:`mamba_scan_ref` are the plain
+versions of the CUDA attention and selective-scan kernels, the same math
+in fp32 written as whole-tensor torch ops. Their summation orders differ
+from the kernels', so the two agree to a tolerance, not bit for bit.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
-__all__ = ["gbdt_predict_ref", "gbdt_predict_numpy", "pairwise_program"]
+__all__ = ["NEG_INF", "flash_attention_ref", "gbdt_predict_numpy",
+           "gbdt_predict_ref", "mamba_scan_ref", "pairwise_program"]
 
+#: The reference's mask value: large and negative, finite in fp32 and bf16.
+NEG_INF = -2.0 ** 30
 #: numpy's pairwise-sum block size (``PW_BLOCKSIZE``) and unroll width.
 _BLOCK, _UNROLL = 128, 8
 
@@ -98,3 +107,60 @@ def gbdt_predict_numpy(X: np.ndarray, feats: np.ndarray,
         np.broadcast_to(leaves[None], (X.shape[0],) + leaves.shape),
         leaf_idx[:, :, None], axis=2)[..., 0]
     return base + contrib.sum(axis=1)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window=None) -> torch.Tensor:
+    """Causal / sliding-window GQA attention with the flash kernel's
+    arithmetic, in fp32. q: (B, Hq, Sq, hd); k/v: (B, Hkv, Sk, hd).
+    Returns (B, Hq, Sq, hd) in q's dtype.
+
+    Head h attends kv head ``h // (Hq // Hkv)``. Queries are right-aligned
+    (row i sits at position ``i + Sk - Sq``). Masked scores take
+    :data:`NEG_INF`, masked probabilities are zeroed and the denominator is
+    clamped at 1e-30, so a row with no live key comes out 0 — where such a
+    row exists this differs from a plain softmax, as the reference kernel
+    does; elsewhere it is the softmax."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qf = q.float().reshape(B, Hkv, G, Sq, hd)
+    kf = k.float()[:, :, None]
+    vf = v.float()[:, :, None]
+    s = (qf @ kf.transpose(-1, -2)) * (1.0 / math.sqrt(hd))  # (B,K,G,Sq,Sk)
+    qi = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kj = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kj <= qi)
+    if window is not None:
+        mask = mask & (kj > qi - window)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = (p @ vf) / l
+    return out.reshape(B, Hq, Sq, hd).to(q.dtype)
+
+
+def mamba_scan_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
+                   h0: "torch.Tensor | None" = None):
+    """Sequential Mamba-1 selective scan in fp32.
+
+    u/dt: (B, L, Di); A: (Di, N); Bm/Cm: (B, L, N); D: (Di,); h0:
+    (B, Di, N) or None (zeros). Returns (y (B, L, Di), h_last (B, Di, N)),
+    both fp32."""
+    Bsz, L, Di = u.shape
+    N = A.shape[1]
+    uf, dtf, Bf, Cf = (t.float() for t in (u, dt, Bm, Cm))
+    Af = A.float()
+    h = (torch.zeros((Bsz, Di, N), dtype=torch.float32, device=u.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(L):
+        dA = torch.exp(dtf[:, t, :, None] * Af[None])
+        dBu = (dtf[:, t] * uf[:, t])[..., None] * Bf[:, t, None, :]
+        h = dA * h + dBu
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1) + uf * D.float()[None, None, :]
+    return y, h

@@ -1,0 +1,118 @@
+"""Shared model building blocks: dtypes, initializers, norms, RoPE and the
+embedding tables.
+
+Parameters live in ``nn.Module``s and keep the reference's names and
+layouts: a projection is stored ``(in, out)`` and applied as ``x @ w``, so
+a weight carries between the packages as a plain copy
+(:mod:`repro_torch.convert`). Modules allocate their parameters and
+``reset_parameters(generator)`` fills them; the model code itself is plain
+functions on tensors. Parameters do not require grad: this package serves,
+and its kernels are forward-only.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def param(shape, dtype, device) -> nn.Parameter:
+    """An uninitialized, frozen parameter."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+# ---------------------------------------------------------------------- #
+#  Initializers (fp32 normal draws scaled, then cast, as the reference)
+# ---------------------------------------------------------------------- #
+def _normal(generator: torch.Generator, shape, device) -> torch.Tensor:
+    return torch.randn(shape, generator=generator, device=device,
+                       dtype=torch.float32)
+
+
+def dense_init(generator, shape, dtype, device, fan_in=None):
+    fan_in = fan_in if fan_in is not None else shape[0]
+    return (_normal(generator, shape, device)
+            * (1.0 / math.sqrt(fan_in))).to(dtype)
+
+
+def embed_init(generator, shape, dtype, device):
+    return (_normal(generator, shape, device) * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------- #
+#  Norms (computed in fp32, cast back)
+# ---------------------------------------------------------------------- #
+def rms_norm(x, weight, eps):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------- #
+#  Rotary position embeddings (full head dim, split-half rotation)
+# ---------------------------------------------------------------------- #
+def rope_freqs(head_dim: int, theta: float, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                   # (hd/2,)
+    angles = positions[..., :, None].float() * freqs         # (..., S, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]                 # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------- #
+#  Embedding / unembedding
+# ---------------------------------------------------------------------- #
+class Embeddings(nn.Module):
+    """``tok`` (vocab, d_model) and, unless tied, ``unembed`` (d_model,
+    vocab)."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        dt = dtype_of(cfg.param_dtype)
+        self.tok = param((cfg.vocab_size, cfg.d_model), dt, device)
+        self.unembed = (None if cfg.tie_embeddings else
+                        param((cfg.d_model, cfg.vocab_size), dt, device))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator):
+        dev = self.tok.device
+        self.tok.copy_(embed_init(generator, self.tok.shape, self.tok.dtype,
+                                  dev))
+        if self.unembed is not None:
+            self.unembed.copy_(dense_init(generator, self.unembed.shape,
+                                          self.unembed.dtype, dev))
+
+
+def init_embeddings(cfg, generator, device):
+    emb = Embeddings(cfg, device)
+    emb.reset_parameters(generator)
+    return emb
+
+
+def embed_tokens(p: Embeddings, tokens, cfg):
+    return p.tok[tokens.long()].to(dtype_of(cfg.activation_dtype))
+
+
+def unembed(p: Embeddings, x, cfg):
+    w = p.unembed if p.unembed is not None else p.tok.T
+    return x @ w.to(x.dtype)

@@ -1,0 +1,149 @@
+"""Mamba-1 block (falcon-mamba-7b).
+
+Recurrence (diagonal A, per-channel state):
+    h_t = exp(dt_t ⊙ A) ⊙ h_{t-1} + (dt_t ⊙ B_t) ⊗ x_t
+    y_t = C_t · h_t + D ⊙ x_t
+
+A prompt (``state is None`` and L > 1) runs through the scan kernel
+(:func:`repro_torch.kernels.ops.mamba_scan`) on fp32 inputs, as the
+reference's ``attn_impl="flash"`` route does; decode steps run the plain
+recurrence :func:`mamba1_scan`, which streams its inputs in the activation
+dtype, as the reference's does. The Mamba-2 block (the hybrid family)
+is not ported yet.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import ops as kops
+from .common import dense_init, dtype_of, param
+
+
+def _dt_rank(cfg) -> int:
+    return max(cfg.d_model // 16, 1)
+
+
+class Mamba1(nn.Module):
+    """Parameters named as the reference's: ``in_proj``, ``conv_w``,
+    ``conv_b``, ``x_proj``, ``dt_proj``, ``dt_bias``, ``A_log``, ``D``,
+    ``out_proj``. ``dt_bias``, ``A_log`` and ``D`` are fp32 always."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        dt = dtype_of(cfg.param_dtype)
+        D, Di, N, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+        R = _dt_rank(cfg)
+        f32 = torch.float32
+        self.in_proj = param((D, 2 * Di), dt, device)
+        self.conv_w = param((Di, K), dt, device)
+        self.conv_b = param((Di,), dt, device)
+        self.x_proj = param((Di, R + 2 * N), dt, device)
+        self.dt_proj = param((R, Di), dt, device)
+        self.dt_bias = param((Di,), f32, device)
+        self.A_log = param((Di, N), f32, device)
+        self.D = param((Di,), f32, device)
+        self.out_proj = param((Di, D), dt, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator):
+        for w in (self.in_proj, self.x_proj, self.dt_proj, self.out_proj):
+            w.copy_(dense_init(generator, w.shape, w.dtype, w.device))
+        self.conv_w.copy_(dense_init(generator, self.conv_w.shape,
+                                     self.conv_w.dtype, self.conv_w.device,
+                                     fan_in=self.conv_w.shape[1]))
+        self.conv_b.zero_()
+        Di, N = self.A_log.shape
+        dev = self.A_log.device
+        # dt = exp(U(log 1e-3, log 1e-1)) clipped at 1e-4, stored as the
+        # inverse softplus; A = -(1..N) per channel, stored as log(1..N)
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        r = torch.rand((Di,), generator=generator, device=dev)
+        dt0 = torch.exp(lo + (hi - lo) * r).clamp_min(1e-4)
+        self.dt_bias.copy_(torch.log(torch.expm1(dt0)))
+        self.A_log.copy_(torch.log(torch.arange(
+            1, N + 1, dtype=torch.float32, device=dev)).expand(Di, N))
+        self.D.fill_(1.0)
+
+
+def init_mamba(cfg, generator, device) -> Mamba1:
+    m = Mamba1(cfg, device)
+    m.reset_parameters(generator)
+    return m
+
+
+# ---------------------------------------------------------------------- #
+#  Depthwise causal conv1d
+# ---------------------------------------------------------------------- #
+def causal_conv1d(x, w, b, state=None):
+    """x: (B, L, C); w: (C, K); optional state: (B, K-1, C) prior context.
+    Returns (y (B, L, C), new_state (B, K-1, C))."""
+    B, L, C = x.shape
+    K = w.shape[1]
+    if state is None:
+        state = torch.zeros((B, K - 1, C), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state, x], dim=1)                      # (B, L+K-1, C)
+    y = torch.zeros((B, L, C), dtype=x.dtype, device=x.device)
+    for i in range(K):  # K is small (4): unrolled shifted adds
+        y = y + xp[:, i:i + L, :] * w[:, i].to(x.dtype)
+    new_state = xp[:, L:, :] if K > 1 else state
+    return y + b.to(x.dtype), new_state
+
+
+# ---------------------------------------------------------------------- #
+#  Mamba-1
+# ---------------------------------------------------------------------- #
+def mamba1_scan(u, dt, A, Bm, Cm, D, h0=None):
+    """Sequential selective scan (the decode route).
+
+    u: (B, L, Di); dt: (B, L, Di); A: (Di, N); Bm/Cm: (B, L, N); D: (Di,);
+    h0: (B, Di, N) or None. The inputs stream in u's dtype and are upcast
+    per step; the state and the arithmetic are fp32 and each step's y is
+    rounded to u's dtype, as the reference's. Returns (y (B, L, Di) fp32,
+    h_last (B, Di, N) fp32)."""
+    Bsz, L, Di = u.shape
+    N = A.shape[1]
+    h = (torch.zeros((Bsz, Di, N), dtype=torch.float32, device=u.device)
+         if h0 is None else h0)
+    dt_s, B_s, C_s = (t.to(u.dtype) for t in (dt, Bm, Cm))
+    ys = []
+    for t in range(L):
+        u_t, dt_t, B_t, C_t = (a[:, t].float()
+                               for a in (u, dt_s, B_s, C_s))
+        dA = torch.exp(dt_t[..., None] * A[None])           # (B, Di, N)
+        dBu = (dt_t * u_t)[..., None] * B_t[:, None, :]     # (B, Di, N)
+        h = dA * h + dBu
+        ys.append(torch.einsum("bdn,bn->bd", h, C_t).to(u.dtype))
+    y = torch.stack(ys, dim=1).float() + u.float() * D[None, None, :]
+    return y, h
+
+
+def mamba1_block(p: Mamba1, x, cfg, state=None):
+    """x: (B, L, D). state: None, or dict(conv, ssm) for decode.
+    Returns (out, new_state)."""
+    L = x.shape[1]
+    Di, N = cfg.d_inner, cfg.ssm_state
+    R = _dt_rank(cfg)
+    xz = x @ p.in_proj.to(x.dtype)
+    xs, z = xz[..., :Di], xz[..., Di:]
+    conv_state = state["conv"] if state is not None else None
+    xs, new_conv = causal_conv1d(xs, p.conv_w, p.conv_b, conv_state)
+    xs = F.silu(xs)
+    proj = xs @ p.x_proj.to(xs.dtype)
+    dt_raw, Bm, Cm = proj[..., :R], proj[..., R:R + N], proj[..., R + N:]
+    dt = dt_raw @ p.dt_proj.to(xs.dtype)
+    dt = F.softplus(dt.float() + p.dt_bias[None, None, :])
+    A = -torch.exp(p.A_log)
+    if state is None and L > 1:
+        # B and C are column slices of one projection: made contiguous
+        y, h_last = kops.mamba_scan(xs.float(), dt, A,
+                                    Bm.float().contiguous(),
+                                    Cm.float().contiguous(), p.D)
+    else:
+        h0 = state["ssm"] if state is not None else None
+        y, h_last = mamba1_scan(xs, dt, A, Bm, Cm, p.D, h0)
+    y = y.to(x.dtype) * F.silu(z)
+    return y @ p.out_proj.to(x.dtype), {"conv": new_conv, "ssm": h_last}

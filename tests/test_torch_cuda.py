@@ -6,6 +6,11 @@ and ``repro_torch`` (no JAX), so it also runs where the reference is not
 installed::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: the GBDT kernel equals its plain version bit for bit. The
+attention and scan kernels sum in another order than their plain versions:
+2e-5 in fp32; in bf16 one ulp of the output (2**-7 relative), since both
+compute in fp32 and round once. fp32 matmuls run with TF32 off.
 """
 from __future__ import annotations
 
@@ -13,14 +18,20 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import gbdt_predict as gp, ops, ref
+from repro_torch.kernels import flash_attention as fa, gbdt_predict as gp
+from repro_torch.kernels import mamba_scan as ms, ops, ref
 
 pytestmark = pytest.mark.cuda
+
+F32 = dict(atol=2e-5, rtol=2e-5)
+BF16_ULP = dict(atol=1e-6, rtol=2.0 ** -7)
 
 
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -55,3 +66,144 @@ def test_out_of_range_feature_poisons_the_row():
     got = ops.gbdt_predict(X, feats, thr, leaves)
     torch.cuda.synchronize()
     assert torch.isnan(got).all()
+
+
+def _qkv(seed, B, Sq, Hq, Hkv, hd, dtype, device, Sk=None):
+    rng = np.random.default_rng(seed)
+    Sk = Sk or Sq
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            .to(device=device, dtype=dtype)
+            for shape in ((B, Sq, Hq, hd), (B, Sk, Hkv, hd),
+                          (B, Sk, Hkv, hd))]
+
+
+def _plain_attn(q, k, v, **kw):
+    return ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), **kw).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,kw", [
+    ((1, 32, 4, 4, 16, None), {}), ((2, 64, 8, 2, 32, None), {}),
+    ((1, 128, 15, 5, 64, None), {}), ((1, 48, 6, 1, 80, None), {}),
+    ((2, 40, 4, 2, 128, None), {}), ((1, 300, 8, 2, 128, None), {}),
+    ((1, 96, 4, 4, 32, None), {"window": 4}),
+    ((1, 96, 4, 4, 32, None), {"window": 16}),
+    ((1, 200, 4, 2, 64, None), {"window": 64}),
+    ((2, 5, 4, 2, 16, 40), {"window": 8}),       # right-aligned queries
+    ((1, 70, 4, 2, 16, 130), {}),
+    ((1, 24, 2, 2, 16, 16), {}),                 # rows with no key
+    ((1, 33, 4, 2, 16, None), {"causal": False}),
+])
+def test_flash_kernel_matches_plain_version(shape, kw, dtype):
+    dev = _card()
+    B, Sq, Hq, Hkv, hd, Sk = shape
+    q, k, v = _qkv(1, B, Sq, Hq, Hkv, hd, dtype, dev, Sk=Sk)
+    before = fa.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = F32 if dtype == torch.float32 else BF16_ULP
+    torch.testing.assert_close(got.float(), _plain_attn(q, k, v, **kw)
+                               .float(), **tol)
+    cpu = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), **kw)
+    torch.testing.assert_close(got.float().cpu(), cpu.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd,misalign", [(20, False), (18, False),
+                                         (64, True)])
+def test_flash_kernel_scalar_staging(hd, misalign, dtype):
+    """Head dims that are not a multiple of 16 bytes, and tensors that do
+    not start on a 16-byte boundary, take the kernel's scalar staging."""
+    dev = _card()
+    q, k, v = _qkv(2, 2, 70, 4, 2, hd, dtype, dev)
+    if misalign:  # the same values, one element past an aligned base
+        q, k, v = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+                   for t in (q, k, v))
+        assert q.data_ptr() % 16 and q.is_contiguous()
+    got = ops.flash_attention(q, k, v, window=24)
+    tol = F32 if dtype == torch.float32 else BF16_ULP
+    torch.testing.assert_close(got.float(), _plain_attn(q, k, v, window=24)
+                               .float(), **tol)
+
+
+def _scan(seed, B, L, Di, N, device):
+    rng = np.random.default_rng(seed)
+    sp = np.log1p(np.exp(rng.normal(size=(B, L, Di))))
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in (
+        rng.normal(size=(B, L, Di)), sp * 0.1,
+        -np.exp(rng.normal(size=(Di, N)) * 0.3),
+        rng.normal(size=(B, L, N)), rng.normal(size=(B, L, N)),
+        np.linspace(0.5, 1.5, Di))]
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 16, 8, 4), (2, 64, 32, 16), (1, 40, 24, 8), (2, 33, 20, 8),
+    (3, 100, 130, 16), (1, 7, 64, 64), (2, 64, 16, 1), (1, 300, 8, 5),
+])
+def test_scan_kernel_matches_plain_version(shape):
+    dev = _card()
+    args = _scan(2, *shape, dev)
+    before = ms.launches
+    y, h = ops.mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert ms.launches == before + 1
+    want_y, want_h = ref.mamba_scan_ref(*args)
+    torch.testing.assert_close(y, want_y, **F32)
+    torch.testing.assert_close(h, want_h, **F32)
+
+
+def test_scan_kernel_state_decays_with_negative_A():
+    dev = _card()
+    B, L, Di, N = 1, 64, 8, 4
+    u = torch.zeros(B, L, Di, device=dev)
+    u[:, 0] = 1.0
+    ones = torch.ones(B, L, N, device=dev)
+    y, _ = ops.mamba_scan(u, torch.full((B, L, Di), 0.5, device=dev),
+                          -2.0 * torch.ones(Di, N, device=dev), ones, ones,
+                          torch.zeros(Di, device=dev))
+    mags = y[0, :, 0].abs().cpu()
+    assert mags[1] < mags[0] and mags[30] < 1e-3
+
+
+def test_wrappers_refuse_mixed_devices_and_grad_on_the_card():
+    dev = _card()
+    q, k, v = _qkv(3, 1, 8, 4, 2, 16, torch.float32, dev)
+    with pytest.raises(ValueError, match="is on cpu"):
+        ops.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="forward-only"):
+        ops.flash_attention(q.requires_grad_(), k, v)
+    args = _scan(4, 1, 8, 8, 4, dev)
+    args[0] = args[0].bfloat16()
+    with pytest.raises(TypeError, match="u must be"):
+        ops.mamba_scan(*args)
+
+
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "falcon-mamba-7b"])
+def test_reduced_model_serves_alike_on_card_and_cpu(arch):
+    """A reduced model on the card (through both kernels) against the same
+    weights on the CPU (through their plain versions): logits within 1e-4,
+    the same greedy tokens."""
+    dev = _card()
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.convert import model_arrays, model_from_arrays
+    from repro_torch.models import model
+    from repro_torch.train import serve
+    cfg = reduce_for_smoke(get_config(arch))
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    cpu = model_from_arrays(cfg, model_arrays(params), device="cpu")
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 40))
+    a = model.forward(cfg, params, tokens, device=dev)[0]
+    b = model.forward(cfg, cpu, tokens, device="cpu")[0]
+    torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+    before = (fa.launches, ms.launches)
+    ga = serve.greedy_generate(cfg, params, tokens, 5, 48, device=dev)
+    gb = serve.greedy_generate(cfg, cpu, tokens, 5, 48, device="cpu")
+    assert torch.equal(ga.cpu(), gb)
+    assert (fa.launches, ms.launches) != before

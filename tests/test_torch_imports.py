@@ -62,7 +62,15 @@ def _entry_points():
                                   Testbed, V5E_DVFS, legacy_run_schedule,
                                   run_schedule)
     from repro_torch.core.gbdt import GBDTModel, GBDTParams, fit_gbdt
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.convert import model_from_arrays
+    from repro_torch.models import model
+    from repro_torch.train import serve
     X = np.random.default_rng(0).normal(size=(8, 3))
+    cfg = reduce_for_smoke(get_config("falcon-mamba-7b"))
+    params = model.init(cfg, device="cpu")
+    tokens = np.zeros((1, 4), np.int32)
     return {
         "resolve_device": lambda: resolve_device(),
         "EnergyTimePredictor": lambda: EnergyTimePredictor(),
@@ -75,13 +83,30 @@ def _entry_points():
             base=0.0, feats=np.zeros((1, 1), np.int32),
             thresholds=np.zeros((1, 1)), leaves=np.zeros((1, 2)),
             split_gain=np.zeros(3), params=GBDTParams()),
+        "model.init": lambda: model.init(cfg),
+        "model.init_cache": lambda: model.init_cache(cfg, 1, 8),
+        "model.forward": lambda: model.forward(cfg, params, tokens),
+        "model.prefill": lambda: model.prefill(cfg, params, tokens, 8),
+        "model.decode_step": lambda: model.decode_step(
+            cfg, params, model.init_cache(cfg, 1, 8, device="cpu"),
+            tokens[:, :1], 0),
+        "model_from_arrays": lambda: model_from_arrays(
+            cfg, {"unused": None}),
+        "greedy_generate": lambda: serve.greedy_generate(cfg, params,
+                                                         tokens, 2, 8),
+        "make_serve_step": lambda: serve.make_serve_step(cfg),
+        "make_prefill_step": lambda: serve.make_prefill_step(cfg, 8),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "EnergyTimePredictor",
                                   "PredictionService", "run_schedule",
                                   "legacy_run_schedule", "fit_gbdt",
-                                  "GBDTModel"])
+                                  "GBDTModel", "model.init",
+                                  "model.init_cache", "model.forward",
+                                  "model.prefill", "model.decode_step",
+                                  "model_from_arrays", "greedy_generate",
+                                  "make_serve_step", "make_prefill_step"])
 def test_default_device_is_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is usable")
