@@ -18,19 +18,26 @@ card, in phases:
    per regressor), a CUDA ``PredictionService`` with ``prefetch_tables``,
    and the 100 000-job uniform stream on 8 devices (min-energy); then the
    same on ``device="cpu"``, which must give identical records;
-5. the flash-attention and Mamba-1 scan kernels against their plain
-   PyTorch versions on the card: the reference test sweep's shapes, the
-   window and right-aligned cases, and the serving shapes (fp32 2e-5; bf16
-   one output ulp, 2**-7 relative);
+5. the flash-attention kernels (both routes: ``wgmma`` on the tensor cores
+   for bf16, ``simt`` for the rest) and the Mamba-1 scan kernel against
+   their plain PyTorch versions on the card: the reference test sweep's
+   shapes, the window and right-aligned cases, and the serving shapes,
+   each case printed with its route (fp32 2e-5; bf16 one output ulp,
+   2**-7 relative, on the SIMT route, and 2**-9 max|v| more on the wgmma
+   route, which rounds p to bf16);
 6. their per-call times at the serving shapes, beside the plain versions,
-   the bound, and for attention PyTorch's own SDPA as a yardstick;
+   the bound, for attention the SIMT kernel at the same shape and
+   PyTorch's own SDPA as a yardstick;
 7. Mistral-NeMo-12B served at full width and depth (random bf16 weights
    from a seed): 4 prompts of 2048 tokens, then 32 greedy decode steps
-   through ``greedy_generate``. Prefill and decode are timed apart; one
-   prefill is broken down by kernel (``torch.profiler``) and one decode
-   step timed on the card alone (CUDA-graph replay). Then the same model
-   at fp32 with 2 layers, cuda against cpu, logits within 1e-3;
-8. Falcon-Mamba-7B, the same way.
+   through ``greedy_generate``; every flash-attention launch of it must
+   take the wgmma route. Prefill and decode are timed apart; one prefill
+   is broken down by kernel (``torch.profiler``) and one decode step timed
+   on the card alone (CUDA-graph replay). Then the same model at fp32 with
+   2 layers, cuda against cpu, logits within 1e-3; and at bf16 with 2
+   layers, a prefill through the kernel against one through the plain
+   attention (logits within 2**-4, the same next tokens);
+8. Falcon-Mamba-7B, the same way (without the bf16 attention check).
 
 Ends with a JSON line of per-kernel numbers, the card line, and
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
@@ -75,6 +82,11 @@ BF16_TOL = (1e-6, 2.0 ** -7)
 #: cuda vs cpu logits of an fp32 model (O(1) logits; fp32 matmuls summed
 #: in another order differ by ~1e-5, a wrong kernel by O(1))
 CPU_TOL = (1e-3, 1e-3)
+#: a bf16 model's logits with the attention kernel against the plain
+#: attention: every bf16 op rounds at 2**-8 relative, so an attention
+#: output one ulp away moves later roundings and O(1) logits by a few
+#: ulps (2**-6 .. 2**-5); a wrong kernel moves them by O(1)
+BF16_MODEL_TOL = (2.0 ** -4, 2.0 ** -4)
 #: (B, S, Hq, Hkv, hd), Sk (None: = S), options: tests/test_kernels.py's
 #: sweep, its windows, and right-aligned queries
 ATTN_SWEEP = (
@@ -85,6 +97,9 @@ ATTN_SWEEP = (
     ((1, 96, 4, 4, 32), None, {"window": 16}),
     ((1, 96, 4, 4, 32), None, {"window": 64}),
     ((2, 5, 4, 2, 16), 40, {"window": 8}),
+    ((1, 300, 8, 2, 96), None, {"window": 100}),
+    ((1, 33, 4, 2, 112), None, {"causal": False}),
+    ((2, 70, 4, 2, 20), None, {"window": 24}),   # bf16 too: SIMT route
 )
 SCAN_SWEEP = ((1, 16, 8, 4), (2, 64, 32, 16), (1, 40, 24, 8), (2, 33, 20, 8))
 #: the serving shapes: Mistral-NeMo-12B's attention and Falcon-Mamba-7B's
@@ -231,9 +246,12 @@ def _device_breakdown(fn, top: int = 6) -> str:
 
 
 def _reset(counters) -> None:
-    """Every kernel's launch count to 0, just before a path is driven."""
+    """Every kernel's launch count to 0 (and per route, where a kernel has
+    routes), just before a path is driven."""
     for mod in counters:
         mod.launches = 0
+        for route in getattr(mod, "route_launches", {}):
+            mod.route_launches[route] = 0
 
 
 def _close(got: torch.Tensor, want: torch.Tensor, tol, what: str) -> float:
@@ -296,30 +314,48 @@ def _plain_attn(ref, q, k, v, **kw):
                                    v.transpose(1, 2), **kw).transpose(1, 2)
 
 
-def _kernels_vs_plain(dev, ops, ref) -> dict:
-    """Phase 5: both new kernels against their plain versions on the card.
-    Returns the serving shapes' inputs and max abs errors."""
+def _attention_case(fa, ops, ref, q, k, v, kw, what) -> tuple[str, float,
+                                                               tuple]:
+    """One attention call through the wrapper against the plain version,
+    at the tolerance of the route it took. Returns (route, max abs err,
+    tolerance)."""
+    before = dict(fa.route_launches)
+    got = ops.flash_attention(q, k, v, **kw)
+    want = _plain_attn(ref, q, k, v, **kw)
+    torch.cuda.synchronize()
+    taken = [r for r in fa.ROUTES if fa.route_launches[r] != before[r]]
+    _check(len(taken) == 1, f"{what}: one route launched, got {taken}")
+    tol = fa.tolerance(taken[0], q.dtype, v)
+    return taken[0], _close(got, want, tol, f"{what} ({taken[0]})"), tol
+
+
+def _kernels_vs_plain(dev, fa, ops, ref) -> dict:
+    """Phase 5: the attention kernels (both routes) and the scan kernel
+    against their plain versions on the card. Returns the serving shapes'
+    inputs and max abs errors."""
     print("== phase 5: flash_attention and mamba_scan kernels vs plain "
-          f"(fp32 tol {F32_TOL}, bf16 tol {BF16_TOL} as (atol, rtol))")
+          f"(fp32 tol {F32_TOL}, bf16 simt tol {BF16_TOL}, bf16 wgmma tol "
+          "(2**-9 max|v|, 2**-7), as (atol, rtol))")
+    routes = {r: 0 for r in fa.ROUTES}
     for (B, Sq, Hq, Hkv, hd), Sk, kw in ATTN_SWEEP:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _attn_inputs(1, B, Sq, Hq, Hkv, hd, dtype, dev, Sk)
-            got = ops.flash_attention(q, k, v, **kw)
-            want = _plain_attn(ref, q, k, v, **kw)
-            torch.cuda.synchronize()
-            tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-            err = _close(got, want, tol, f"attention {(B, Sq, Hq, Hkv, hd)}"
-                         f" Sk={Sk} {kw} {dtype}")
+            route, err, tol = _attention_case(
+                fa, ops, ref, q, k, v, kw,
+                f"attention {(B, Sq, Hq, Hkv, hd)} Sk={Sk} {kw} {dtype}")
+            routes[route] += 1
             print(f"   attention B={B} Sq={Sq} Sk={Sk or Sq} Hq={Hq} "
-                  f"Hkv={Hkv} hd={hd} {kw} {str(dtype)[6:]}: {err:.3e}")
+                  f"Hkv={Hkv} hd={hd} {kw} {str(dtype)[6:]} [{route}]: "
+                  f"{err:.3e} (atol {tol[0]:.3e})")
+    _check(all(routes.values()), f"the sweep took every route: {routes}")
     B, S, Hq, Hkv, hd = SERVE_ATTN
     qkv = _attn_inputs(2, B, S, Hq, Hkv, hd, torch.bfloat16, dev)
-    got = ops.flash_attention(*qkv)
-    want = _plain_attn(ref, *qkv)
-    attn_err = _close(got, want, BF16_TOL, "attention at the serving shape")
+    route, attn_err, tol = _attention_case(fa, ops, ref, *qkv, {},
+                                           "attention at the serving shape")
+    _check(route == "wgmma", f"the serving shape took the {route} route")
     print(f"   attention serving shape B={B} S={S} Hq={Hq} Hkv={Hkv} "
-          f"hd={hd} bf16: {attn_err:.3e}", flush=True)
-    del got, want
+          f"hd={hd} bf16 [{route}]: {attn_err:.3e} (atol {tol[0]:.3e}); "
+          f"sweep cases by route {routes}", flush=True)
     for shape in SCAN_SWEEP + (SERVE_SCAN,):
         args = _scan_inputs(3, *shape, dev)
         y, h = ops.mamba_scan(*args)
@@ -333,12 +369,22 @@ def _kernels_vs_plain(dev, ops, ref) -> dict:
             "scan_err": err}
 
 
-def _kernel_times(ops, ref, p5, card) -> dict:
+def _kernel_times(fa, ops, ref, p5, card) -> dict:
     """Phase 6: per-call times at the serving shapes (CUDA events)."""
     q, k, v = p5["attn_inputs"]
     B, S, Hq, hd = q.shape
     Hkv = k.shape[2]
     a_ms = _time_cuda(lambda: ops.flash_attention(q, k, v), 20)
+    # the SIMT kernel at the same shape: its C entry point, bypassing the
+    # route choice (bf16 = 1, causal, no window)
+    lib, out = fa.build(), torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    def simt():
+        _check(lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, B,
+            S, S, Hq, Hkv, hd, 1, 0, hd ** -0.5, stream) == 0,
+            "SIMT attention launch")
+    a_simt = _time_cuda(simt, 5)
     a_plain = _time_cuda(lambda: _plain_attn(ref, q, k, v), 3)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     a_lib = _time_cuda(lambda: F.scaled_dot_product_attention(
@@ -348,27 +394,72 @@ def _kernel_times(ops, ref, p5, card) -> dict:
     s_ms = _time_cuda(lambda: ops.mamba_scan(*args), 10)
     s_plain = _time_cuda(lambda: ref.mamba_scan_ref(*args), 2)
     s_bound, s_by = _scan_bound_ms(*args[0].shape, args[2].shape[1])
+    one = [t[:1] if t.dim() == 3 else t for t in args]   # batch row 0 alone
+    s_one = _time_cuda(lambda: ops.mamba_scan(*one), 10)
     print(f"== phase 6: per-call ms at the serving shapes (CUDA events); "
           f"card {card}")
     print(f"   flash_attention B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} bf16: "
-          f"kernel {a_ms:.6f}  plain {a_plain:.6f}  sdpa {a_lib:.6f}  "
-          f"bound {a_bound:.6f} ({a_by})  kernel/bound "
-          f"{a_ms / a_bound:.1f}")
+          f"kernel (wgmma) {a_ms:.6f}  simt {a_simt:.6f}  plain "
+          f"{a_plain:.6f}  sdpa {a_lib:.6f}  bound {a_bound:.6f} ({a_by})  "
+          f"kernel/bound {a_ms / a_bound:.1f}  simt/wgmma "
+          f"{a_simt / a_ms:.2f}  TFLOP/s {a_bound * 989 / a_ms:.1f}")
     print(f"   mamba_scan B,L,Di,N={tuple(args[0].shape)},"
           f"{args[2].shape[1]} fp32: kernel {s_ms:.6f}  plain "
           f"{s_plain:.6f}  bound {s_bound:.6f} ({s_by})  kernel/bound "
-          f"{s_ms / s_bound:.1f}", flush=True)
+          f"{s_ms / s_bound:.1f}  kernel at B=1 {s_one:.6f}", flush=True)
     return {"flash_attention": dict(ms=a_ms, plain_ms=a_plain,
                                     library_ms=a_lib, bound_ms=a_bound,
-                                    bound_by=a_by),
+                                    bound_by=a_by, simt_ms=a_simt),
             "mamba_scan": dict(ms=s_ms, plain_ms=s_plain, library_ms=None,
-                               bound_ms=s_bound, bound_by=s_by)}
+                               bound_ms=s_bound, bound_by=s_by,
+                               ms_batch1=s_one)}
+
+
+def _bf16_attention_check(cfg, fa, ops, ref, dev) -> float:
+    """Phase 7: a 2-layer, full-width bf16 prefill of one serving-length
+    prompt as the package runs it, then again with ``ops.flash_attention``
+    swapped for the plain version (here in the harness only). Logits within
+    BF16_MODEL_TOL and the same next token. Returns the max abs error."""
+    from repro_torch.models import model
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params = model.init(cfg2, torch.Generator(device=dev).manual_seed(2),
+                        device=dev)
+    req = np.random.default_rng(14).integers(0, cfg.vocab_size,
+                                             (1, SERVE_PROMPT))
+    before = fa.route_launches["wgmma"]
+    got, _ = model.prefill(cfg2, params, req, SERVE_PROMPT + 1, device=dev)
+    _check(fa.route_launches["wgmma"] - before == cfg2.n_layers,
+           "bf16 check: one wgmma launch per layer")
+    kernel_attn = ops.flash_attention
+    ops.flash_attention = (lambda q, k, v, causal=True, window=None:
+                           _plain_attn(ref, q, k, v, causal=causal,
+                                       window=window))
+    try:
+        want, _ = model.prefill(cfg2, params, req, SERVE_PROMPT + 1,
+                                device=dev)
+    finally:
+        ops.flash_attention = kernel_attn
+    torch.cuda.synchronize()
+    err = _close(got, want, BF16_MODEL_TOL,
+                 f"{cfg.name}: bf16 logits, kernel vs plain attention")
+    tok, tok_want = got[:, -1].argmax(-1), want[:, -1].argmax(-1)
+    _check(bool(torch.equal(tok, tok_want)),
+           f"{cfg.name}: bf16 next token, kernel vs plain attention")
+    print(f"   {cfg.name} bf16, 2 layers, full width, one {SERVE_PROMPT}-"
+          f"token prompt: logits through the wgmma kernel vs the plain "
+          f"attention max abs err {err:.3e} (tol {BF16_MODEL_TOL}; max "
+          f"|logit| {float(want.float().abs().max()):.3f}); next token "
+          f"{int(tok[0])} == {int(tok_want[0])}", flush=True)
+    del params, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return err
 
 
 def _serve(arch: str, kernel, counters, dev, phase: int) -> dict:
     """Phases 7 and 8: serve one model at full width and depth, then hold
     the port on the card to the port on the CPU. Returns the launch counts
-    of greedy_generate's run, by kernel."""
+    of greedy_generate's run, by kernel (and by route for attention)."""
     from repro_torch.configs import get_config
     from repro_torch.convert import model_arrays, model_from_arrays
     from repro_torch.models import model
@@ -426,8 +517,14 @@ def _serve(arch: str, kernel, counters, dev, phase: int) -> dict:
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in counters}
+    by_route = {m.__name__.rsplit(".", 1)[-1]: dict(m.route_launches)
+                for m in counters if hasattr(m, "route_launches")}
+    launches["by_route"] = by_route
     _check(kernel.launches > 0, f"{arch}: greedy_generate never launched "
            f"{kernel.__name__}")
+    if hasattr(kernel, "route_launches"):   # bf16 serving: all on wgmma
+        _check(kernel.route_launches["wgmma"] == kernel.launches,
+               f"{arch}: attention launches by route {by_route}")
     _check(tuple(out.shape) == (B, steps + 1) and out.dtype == torch.int32
            and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
            f"{arch}: generated tokens")
@@ -471,6 +568,9 @@ def _serve(arch: str, kernel, counters, dev, phase: int) -> dict:
     del p_cuda, p_cpu, la, lb, ca, cb, da, db
     gc.collect()
     torch.cuda.empty_cache()
+    if hasattr(kernel, "route_launches"):
+        from repro_torch.kernels import ops, ref
+        _bf16_attention_check(cfg, kernel, ops, ref, dev)
     return launches
 
 
@@ -508,7 +608,7 @@ def main() -> int:
     print(f"   kernel build {time.perf_counter() - t0:.2f} s", flush=True)
     for line in (build.build_log or "cached library").splitlines():
         if any(w in line for w in ("==", "entry", "registers", "spill",
-                                   "cached")):
+                                   "cached", "warning")):
             print(f"   {line.strip()}")
 
     # -- fixtures (host numpy): profiling campaign + production predictor --
@@ -670,8 +770,8 @@ def main() -> int:
     print(f"   cuda and cpu runs record-identical over {N_JOBS} jobs; "
           "tables bitwise equal", flush=True)
 
-    p5 = _kernels_vs_plain(dev, ops, ref)
-    times = _kernel_times(ops, ref, p5, card)
+    p5 = _kernels_vs_plain(dev, fa, ops, ref)
+    times = _kernel_times(fa, ops, ref, p5, card)
     attn_err, scan_err = p5["attn_err"], p5["scan_err"]
     del p5
     served = {"flash_attention": _serve("mistral-nemo-12b", fa, counters,
@@ -700,6 +800,11 @@ def main() -> int:
             "replaces": f"src/repro/kernels/{name}.py:{line}",
             "launches": served[name][name],
             "max_abs_err": err, **times[name]})
+    # the main path's attention kernel; the SIMT route's beside it
+    rows[1]["source"] = "src/repro_torch/csrc/flash_attention_sm90.cu"
+    rows[1]["simt_source"] = "src/repro_torch/csrc/flash_attention.cu"
+    rows[1]["launches_by_route"] = \
+        served["flash_attention"]["by_route"]["flash_attention"]
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

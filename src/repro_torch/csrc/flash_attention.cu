@@ -1,8 +1,13 @@
 // Causal / sliding-window GQA flash attention (forward) for Hopper
-// (sm_90a), fp32 or bf16 in, fp32 arithmetic, output in the input dtype.
+// (sm_90a), fp32 or bf16 in, fp32 arithmetic, output in the input dtype:
+// the SIMT route.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
-// (flash_attention, pl.pallas_call at :116, body _kernel at :33). For every
+// (flash_attention, pl.pallas_call at :116, body _kernel at :33) for what
+// the tensor-core kernel (flash_attention_sm90.cu, the wgmma route) does
+// not take: fp32 inputs, bf16 head dims that are not a multiple of 16,
+// and tensors that do not start on a 16-byte boundary. The route is chosen
+// in Python (repro_torch/kernels/flash_attention.py::route). For every
 // batch b, query head h and query row i it computes
 //
 //   out[b,i,h] = sum_j p_ij v[b,j,h/G] / max(sum_j p_ij, 1e-30)
@@ -23,9 +28,8 @@
 // the model's layout, read in place (no transposes, no padding). Ragged
 // Sq, Sk and hd are masked inside the kernel.
 //
-// Design (the first, simple version; the wgmma/TMA redesign is queued).
-// One block of 128 threads per (batch x query head, 64-row query tile);
-// heavy causal tiles are scheduled first. The query tile and each 64-key
+// Design. One block of 128 threads per (batch x query head, 64-row query
+// tile); heavy causal tiles are scheduled first. The query tile and each 64-key
 // K/V tile are staged in shared memory as fp32, row-major, through
 // 16-byte global loads, several in flight per thread (a scalar path
 // serves head dims that are not a multiple of 16 bytes, or unaligned
@@ -40,11 +44,13 @@
 // p never rounded), and tf32/bf16 tensor-core products would change its
 // numbers.
 //
-// What bounds it. At the serving shape (B=4, S=2048, Hq=32, Hkv=8,
-// hd=128, bf16, causal) the work is 137 GFLOP against 168 MB of traffic:
-// operations bound it, at 0.14 ms on the bf16 tensor cores. This kernel
-// runs on the fp32 FMA pipes (67 TFLOP/s peak), so it cannot come within
-// 15x of that bound; PERF.md has its measured time.
+// What bounds it. The fp32 FMA pipes (67 TFLOP/s peak). At the bf16
+// serving shape (B=4, S=2048, Hq=32, Hkv=8, hd=128, causal) the
+// work is 137 GFLOP against 168 MB of traffic, 0.14 ms on the tensor
+// cores: this kernel cannot come within 15x of that, which is why bf16
+// takes the wgmma route. Its shapes here are the fp32 checks and the odd
+// bf16 head dims, off the serving path; PERF.md has its time at the
+// serving shape beside the wgmma route's.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -10,7 +10,9 @@ the kernels: nothing is padded here.
 * :func:`gbdt_predict` (and :func:`gbdt_predict_model`) computes in fp64;
   kernel and plain version agree bit for bit.
 * :func:`flash_attention` takes the model layout ``(B, S, H, hd)``, which
-  the kernel reads in place, in fp32 or bf16.
+  the kernels read in place, in fp32 or bf16; the launch takes the
+  tensor-core (``wgmma``) or the SIMT route, as
+  :func:`repro_torch.kernels.flash_attention.route` chooses.
 * :func:`mamba_scan` takes fp32 inputs and returns ``(y, h_last)``, the
   final state written by the kernel from the state it carries.
 

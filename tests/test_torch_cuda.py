@@ -9,8 +9,11 @@ installed::
 
 Tolerances: the GBDT kernel equals its plain version bit for bit. The
 attention and scan kernels sum in another order than their plain versions:
-2e-5 in fp32; in bf16 one ulp of the output (2**-7 relative), since both
-compute in fp32 and round once. fp32 matmuls run with TF32 off.
+2e-5 in fp32; in bf16 on the SIMT attention route one ulp of the output
+(2**-7 relative), since both compute in fp32 and round once; on the wgmma
+attention route ``2**-9 max|v|`` more, since the tensor cores take p in
+bf16 (``repro_torch.kernels.flash_attention.tolerance`` derives it). fp32
+matmuls run with TF32 off.
 """
 from __future__ import annotations
 
@@ -82,6 +85,13 @@ def _plain_attn(q, k, v, **kw):
                                    v.transpose(1, 2), **kw).transpose(1, 2)
 
 
+def _attn_tol(q, v):
+    """(atol, rtol) of the route that q's call takes."""
+    which = fa.route(q.dtype, q.shape[-1], True)
+    atol, rtol = fa.tolerance(which, q.dtype, v)
+    return dict(atol=atol, rtol=rtol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape,kw", [
@@ -105,7 +115,7 @@ def test_flash_kernel_matches_plain_version(shape, kw, dtype):
     torch.cuda.synchronize()
     assert fa.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
-    tol = F32 if dtype == torch.float32 else BF16_ULP
+    tol = _attn_tol(q, v)
     torch.testing.assert_close(got.float(), _plain_attn(q, k, v, **kw)
                                .float(), **tol)
     cpu = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), **kw)
@@ -125,10 +135,74 @@ def test_flash_kernel_scalar_staging(hd, misalign, dtype):
         q, k, v = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
                    for t in (q, k, v))
         assert q.data_ptr() % 16 and q.is_contiguous()
+    before = fa.route_launches["simt"]
     got = ops.flash_attention(q, k, v, window=24)
+    assert fa.route_launches["simt"] == before + 1
     tol = F32 if dtype == torch.float32 else BF16_ULP
     torch.testing.assert_close(got.float(), _plain_attn(q, k, v, window=24)
                                .float(), **tol)
+
+
+#: (B, Sq, Hq, Hkv, hd, Sk), options: the shapes of chip_smoke.py's
+#: ATTN_SWEEP that the wgmma route takes, at every head dim it has an
+#: instance for, and the serving shape
+WGMMA_SWEEP = [
+    ((1, 32, 4, 4, 16, None), {}), ((2, 64, 8, 2, 32, None), {}),
+    ((1, 128, 15, 5, 64, None), {}), ((1, 48, 6, 1, 80, None), {}),
+    ((2, 40, 4, 2, 128, None), {}), ((1, 300, 8, 2, 96, None), {}),
+    ((1, 96, 4, 4, 32, None), {"window": 4}),
+    ((1, 96, 4, 4, 32, None), {"window": 16}),
+    ((1, 96, 4, 4, 32, None), {"window": 64}),
+    ((1, 400, 8, 2, 128, None), {"window": 130}),
+    ((2, 5, 4, 2, 16, 40), {"window": 8}),       # right-aligned queries
+    ((1, 70, 4, 2, 64, 300), {}),
+    ((1, 33, 4, 2, 112, None), {"causal": False}),
+    ((1, 200, 6, 3, 48, 150), {"causal": False, "window": 32}),
+    ((4, 2048, 32, 8, 128, None), {}),           # the serving shape
+]
+
+
+@pytest.mark.parametrize("shape,kw", WGMMA_SWEEP)
+def test_wgmma_route_matches_plain_version(shape, kw):
+    dev = _card()
+    B, Sq, Hq, Hkv, hd, Sk = shape
+    q, k, v = _qkv(4, B, Sq, Hq, Hkv, hd, torch.bfloat16, dev, Sk=Sk)
+    before = dict(fa.route_launches)
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.route_launches["wgmma"] == before["wgmma"] + 1
+    assert fa.route_launches["simt"] == before["simt"]
+    torch.testing.assert_close(got.float(), _plain_attn(q, k, v, **kw)
+                               .float(), **_attn_tol(q, v))
+
+
+def test_wgmma_route_rows_without_a_key_are_zero():
+    """Sq > Sk, causal: the first Sq - Sk rows sit before every key."""
+    dev = _card()
+    q, k, v = _qkv(5, 2, 200, 4, 2, 128, torch.bfloat16, dev, Sk=60)
+    before = fa.route_launches["wgmma"]
+    got = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.route_launches["wgmma"] == before + 1
+    assert bool((got[:, :140] == 0).all())
+    assert bool(torch.isfinite(got).all()) and bool((got[:, 140:] != 0)
+                                                    .any())
+    torch.testing.assert_close(got.float(), _plain_attn(q, k, v).float(),
+                               **_attn_tol(q, v))
+
+
+def test_route_counters_split_the_launches():
+    dev = _card()
+    bf = _qkv(6, 1, 64, 4, 2, 64, torch.bfloat16, dev)
+    f32 = _qkv(6, 1, 64, 4, 2, 64, torch.float32, dev)
+    odd = _qkv(6, 1, 64, 4, 2, 20, torch.bfloat16, dev)
+    total, by = fa.launches, dict(fa.route_launches)
+    for args in (bf, f32, odd, bf):
+        ops.flash_attention(*args)
+    torch.cuda.synchronize()
+    assert fa.route_launches["wgmma"] - by["wgmma"] == 2
+    assert fa.route_launches["simt"] - by["simt"] == 2
+    assert fa.launches - total == 4
 
 
 def _scan(seed, B, L, Di, N, device):
@@ -144,6 +218,10 @@ def _scan(seed, B, L, Di, N, device):
 @pytest.mark.parametrize("shape", [
     (1, 16, 8, 4), (2, 64, 32, 16), (1, 40, 24, 8), (2, 33, 20, 8),
     (3, 100, 130, 16), (1, 7, 64, 64), (2, 64, 16, 1), (1, 300, 8, 5),
+    # ragged against the kernel's 64-channel blocks and 32-step chunks,
+    # on the 16-byte (Di % 4 == 0) and the 4-byte copy paths
+    (2, 77, 70, 32), (1, 33, 4100, 16), (3, 95, 66, 64), (1, 65, 97, 8),
+    (2, 31, 200, 3), (1, 129, 8196, 16),
 ])
 def test_scan_kernel_matches_plain_version(shape):
     dev = _card()
