@@ -8,10 +8,14 @@ card, in phases:
 0. card identity (name and power limit from ``nvidia-smi``) and kernel
    build time;
 1. the GBDT kernel against its plain PyTorch version on the card, at the
-   reference test sweep's shapes, a depth-8 ensemble, and the production
-   ensembles on the 768-row prefetch batch (max relative error <= 1e-12);
+   reference test sweep's shapes, depth-8 ensembles, the golden shape,
+   ragged and remainder-leaving tree counts, and the production ensembles
+   on the 768-row prefetch batch (bit for bit);
 2. per-row kernel time vs batch size on the production ensemble, beside the
-   plain version and host numpy (the routing crossover);
+   plain version and host numpy (the routing crossover); the kernel at the
+   golden-trace predictor's shape (64 rows, 80 trees of depth 3); and the
+   card's launch floor, an empty kernel of the same library replayed from
+   a CUDA graph as the kernel is;
 3. the 12 base golden traces (6 policies x seeds 0, 1) reproduced exactly
    with ``device="cuda"``, through the kernel;
 4. the main path at full size: the default predictor (400 trees of depth 4
@@ -630,16 +634,19 @@ def main() -> int:
     rng = np.random.default_rng(42)
     worst = 0.0
     for n, T, depth, F in ((17, 9, 2, 5), (64, 64, 4, 23), (8, 130, 6, 8),
-                           (300, 50, 8, 23), (1000, 1, 8, 40)):
+                           (300, 50, 8, 23), (1000, 1, 8, 40),
+                           (64, 80, 3, 23), (33, 260, 5, 23),
+                           (4097, 400, 4, 23), (33, 1000, 8, 23)):
         args = _random_ensemble(rng, n, T, depth, F, dev)
         got = ops.gbdt_predict(*args, base=1.5)
         want = ref.gbdt_predict_ref(*args, base=1.5)
         torch.cuda.synchronize()
         err = _rel_err(got, want)
         worst = max(worst, err)
-        print(f"   n={n} T={T} D={depth} F={F}: {err:.3e} "
-              f"bitwise={bool(torch.equal(got, want))}")
-        _check(err <= REL_TOL, f"kernel vs plain {(n, T, depth, F)}: {err}")
+        same = bool(torch.equal(got, want))
+        print(f"   n={n} T={T} D={depth} F={F}: {err:.3e} bitwise={same}")
+        _check(err <= REL_TOL and same,
+               f"kernel vs plain {(n, T, depth, F)}: {err}")
     prod = {}
     max_abs = 0.0
     for which in ("power", "time"):
@@ -654,11 +661,17 @@ def main() -> int:
         worst = max(worst, err)
         max_abs = max(max_abs, float((got - want).abs().max()))
         T, depth = f_t.shape
+        same = bool(torch.equal(got, want))
         print(f"   production {which}: n={Xe.shape[0]} T={T} D={depth} "
-              f"F={Xe.shape[1]}: {err:.3e} "
-              f"bitwise={bool(torch.equal(got, want))}")
-        _check(err <= REL_TOL, f"production {which}: {err}")
+              f"F={Xe.shape[1]}: {err:.3e} bitwise={same}")
+        _check(err <= REL_TOL and same, f"production {which}: {err}")
     print(f"   worst relative error {worst:.3e} <= {REL_TOL}", flush=True)
+
+    # the golden traces' predictor (phases 2 and 3)
+    g = dict(iterations=80, depth=3, learning_rate=0.15)
+    gcfg = PredictorConfig(gbdt=GBDTParams(l2_leaf_reg=5.0, **g),
+                           gbdt_time=GBDTParams(l2_leaf_reg=3.0, **g))
+    gpred = EnergyTimePredictor(gcfg, device=dev).fit(X, yp, yt)
 
     # -- phase 2: per-row time vs batch size -------------------------------
     Xe, f_t, thr_t, lv_t, base = prod["power"]
@@ -703,13 +716,32 @@ def main() -> int:
     faster = [n for n in ROW_SIZES
               if timing[n]["kernel_ms"] < timing[n]["numpy_ms"]]
     print(f"   wrapper beats host numpy at rows {faster}", flush=True)
+    gold = gpred.power
+    Xg = torch.from_numpy(gold.enc.transform(batch[:64])).to(dev)
+    g_tabs = gold.gbdt.device_tables()
+    g_out = torch.empty(64, dtype=torch.float64, device=dev)
+    g_ms = _time_graph(lambda: gp.launch(Xg, *g_tabs, gold.gbdt.base,
+                                         g_out), 50)
+    g_bound, g_by = _bound_ms(64, *g_tabs[0].shape, Xg.shape[1])
+    _check(torch.equal(g_out, ref.gbdt_predict_ref(Xg, *g_tabs,
+                                                   gold.gbdt.base)),
+           "golden-shape kernel vs plain, bitwise")
+    lib = gp.build()
+    def empty():
+        _check(lib.gbdt_launch_floor(
+            torch.cuda.current_stream().cuda_stream) == 0, "empty launch")
+    floor_ms = _time_graph(empty, 50)
+    print(f"   golden predictor's power ensemble, 64 rows x "
+          f"{g_tabs[0].shape[0]} trees x D{g_tabs[0].shape[1]} x "
+          f"F{Xg.shape[1]}: device_ms {g_ms:.6f} (bitwise equal to plain), "
+          f"bound {g_bound:.9f} ({g_by})")
+    print(f"   launch floor (an empty kernel of the same library, graph "
+          f"replay): {floor_ms:.6f} ms; the kernel at 768 rows is "
+          f"{timing[768]['device_ms'] / floor_ms:.2f}x the floor, at 1 row "
+          f"{timing[1]['device_ms'] / floor_ms:.2f}x", flush=True)
 
     # -- phase 3: golden traces through the kernel -------------------------
     golden = json.loads(GOLDEN.read_text())["traces"]
-    g = dict(iterations=80, depth=3, learning_rate=0.15)
-    gcfg = PredictorConfig(gbdt=GBDTParams(l2_leaf_reg=5.0, **g),
-                           gbdt_time=GBDTParams(l2_leaf_reg=3.0, **g))
-    gpred = EnergyTimePredictor(gcfg, device=dev).fit(X, yp, yt)
     _reset(counters)
     matched = 0
     for policy in POLICY_NAMES:
@@ -791,6 +823,8 @@ def main() -> int:
         "bound_ms": t768["bound_ms"],
         "bound_by": t768["bound_by"],
         "library_ms": None,
+        "floor_ms": floor_ms,
+        "golden_shape_ms": g_ms,
     }]
     for name, line, err in (("flash_attention", 116, attn_err),
                             ("mamba_scan", 72, scan_err)):

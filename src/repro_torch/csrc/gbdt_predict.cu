@@ -8,224 +8,391 @@
 // for an ensemble of T oblivious trees of depth D <= 8 over F features.
 // Padded trees carry +inf thresholds (every bit 0) and zero leaves.
 //
-// Design. The TPU version turned both gathers into one-hot MXU matmuls;
-// here they are plain gathers and compares, with no tensor cores. One
-// thread owns one row: the block's rows of X are staged in shared memory
-// feature-major (every thread of a tree reads the same feature, so a warp
-// reads consecutive words), and the trees are staged through shared memory
-// in tiles (feats int32, thresholds and leaves fp64) sized on the host to
-// fit 48 KB of dynamic shared memory. Ragged n and T are masked inside the
-// kernel; the wrapper does not pad.
+// Summation order. A row's leaves are summed in fp64 in exactly the order
+// numpy's pairwise sum uses for the reference's ``contrib.sum(axis=1)``, so
+// kernel, plain version (repro_torch/kernels/ref.py) and the reference's
+// numpy predict agree bit for bit, which lets the scheduler's records match
+// exactly. That order is a set of independent chains (ref.lane_schedule):
+// numpy sums T >= 8 terms in blocks of 8..128 terms, each block as 8
+// interleaved accumulators (chain j takes the block's terms j, j + 8, ...
+// of its body), combined as ((r0+r1)+(r2+r3))+((r4+r5)+(r6+r7)), then the
+// block's L % 8 remainder terms in order; the block sums are combined along
+// numpy's recursion (the schedule's pair program). Below 8 terms it is one
+// running sum from 0.0.
 //
-// Summation order. Each thread sums its row's leaves in fp64 in exactly
-// the order numpy's pairwise sum uses for the reference's
-// ``contrib.sum(axis=1)``: blocks of at most 128 trees, each summed with 8
-// interleaved accumulators (remainder added last), combined along the
-// binary split tree that numpy's recursion draws. The host encodes that
-// tree for T as a post-order program (a positive entry is a block of that
-// many trees, 0 adds the top two partial sums); the thread walks the trees
-// in ascending order and runs the program on a small stack. Every block
-// starts at a multiple of 8 trees and tiles hold a multiple of 8 trees, so
-// accumulator j always takes tree 8k + j and stays in a register. The
-// plain PyTorch version (repro_torch/kernels/ref.py) runs the same order,
-// so kernel, plain version and the reference's numpy predict agree bit for
-// bit — which is what lets the scheduler's records match exactly.
+// Design. Neither bytes nor operations bound it: on the scheduler's main
+// path the kernel evaluates 768 rows x 400 trees of depth 4 per regressor
+// (a prefetch batch) or a single row, about 0.2 MB to move and 1.5 M
+// compares and adds, well under a microsecond at the card's memory and fp64
+// rates. Latency does: the launch, and the chain of dependent loads per
+// tree (feature index, then the row's X, then the leaf) times the trees a
+// thread walks in series. So a row's chains run on separate lanes: a group
+// of G lanes (a power of two >= 8, chosen by the wrapper from the chain
+// count and the batch) owns a row, lane l sums chains l, l + G, ... of it,
+// with 8 trees' loads in flight (4 past depth 4). The 8 chains of a block
+// sit on 8 aligned lanes and are combined by xor-shuffles over 1, 2 and 4
+// lanes, which reproduce numpy's grouping exactly (IEEE addition
+// commutes); the remainder terms, evaluated by the block's first lanes, are
+// shuffled to every lane and added in order. Each block's first lane
+// writes its sum to shared memory, and the row's first lane runs the pair
+// program there. No atomics: nothing depends on timing. A chain's trees
+// sit 8 apart, so neighbouring lanes read neighbouring trees: the ensemble
+// (70 KB at the main shape) is read through the read-only path straight
+// from L1 and L2, with no block-wide stage, no __syncthreads per tile and
+// no shared-memory limit on T. The row group's X (F doubles) is staged in
+// shared memory and gathered from there, the index clamped. Blocks hold 128
+// threads (or one group, if wider), so 768 rows of 32 lanes are 192 blocks
+// over the 132 SMs. The main shape then takes about 6-9 times an empty
+// kernel's launch (PERF.md). For very large batches the wrapper gives a
+// row one lane (G = 1), which walks the row's blocks with the 8 chains in
+// registers, as the previous kernel did: every lane of a warp then reads
+// the same tree, so the load instructions serve 32 rows, which pays once
+// load throughput, not latency, is the limit. A feature index outside
+// [0, F) makes its tree's leaf NaN, which poisons the row; the index is
+// never used unclamped.
 //
-// What bounds it. On the scheduler's main path the kernel evaluates 768
-// rows x 400 trees per regressor (a prefetch batch) or a single row (a
-// point prediction): about 0.2 MB to move and 1.5 M compares and adds,
-// well under a microsecond at the card's memory and fp64 rates. Neither
-// bytes nor operations bound it: launch latency, the host's cost to issue
-// a call, each block staging the whole ensemble, and each thread's serial
-// walk over every tree do. The design keeps one launch per batch and no
-// host synchronisation in the wrapper; PERF.md has the measured times. A
-// faster version would split a row's trees across the warps of a block
-// (numpy's pairwise blocks are independent partial sums) and stage the
-// ensemble once per SM rather than once per block.
+// Built with -DGBDT_STAGE_ENSEMBLE=1 (scripts/gbdt_routes.py), the kernel
+// instead runs at most one block per SM, stages the whole ensemble in
+// shared memory once per block and loops over its row groups: the
+// alternative that PERF.md records beside this one (slower from 1 to 768
+// rows, where it copies 70 KB before its first tree; faster from 4096).
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cstdint>
+
+#ifndef GBDT_STAGE_ENSEMBLE
+#define GBDT_STAGE_ENSEMBLE 0
+#endif
+
 namespace {
 
-constexpr int kRows = 64;               // rows (threads) per block
 constexpr int kMaxDepth = 8;
-constexpr int kMaxStack = 32;           // pairwise partial sums in flight
-constexpr int kSmemBytes = 48 * 1024;   // no opt-in needed below this
+constexpr int kThreads = 128;          // threads per block, unless G is wider
+constexpr int kMaxGroup = 1024;
+constexpr int kSmemBytes = 48 * 1024;  // no opt-in needed below this
+constexpr int kStagedSmemBytes = 232448;
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ double combine8(const double (&r)[8]) {
-  return ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]));
+template <bool kShared, typename V>
+__device__ __forceinline__ V load(const V* p) {
+  if constexpr (kShared) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kRows)
-gbdt_predict_kernel(const double* __restrict__ X,
-                    const int* __restrict__ feats,
-                    const double* __restrict__ thr,
-                    const double* __restrict__ leaves,
-                    const int* __restrict__ prog, int prog_len,
-                    double base, double* __restrict__ out,
-                    int n, int F, int T, int tile) {
-  constexpr int kLeaves = 1 << D;
-  extern __shared__ __align__(16) unsigned char smem[];
-  double* xs = reinterpret_cast<double*>(smem);        // F x kRows
-  double* lv = xs + F * kRows;                          // tile x kLeaves
-  double* th = lv + tile * kLeaves;                     // tile x D
-  int* ft = reinterpret_cast<int*>(th + tile * D);      // tile x D
-
-  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
-  const int rows = static_cast<int>(min(static_cast<long long>(kRows),
-                                        n - row0));
-  const double* xb = X + row0 * F;
-  for (int i = threadIdx.x; i < rows * F; i += blockDim.x) {
-    const int r = i / F;
-    xs[(i - r * F) * kRows + r] = xb[i];
+// Tree t's leaf for the row whose features sit at xs; NaN when the tree
+// names a feature outside [0, F) (the gather is clamped, never out of
+// bounds).
+template <int D, bool kShared>
+__device__ __forceinline__ double tree_leaf(int t, const double* xs,
+                                            const int* feats,
+                                            const double* thr,
+                                            const double* leaves, int F) {
+  int idx = 0;
+  bool bad = false;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const int f = load<kShared>(feats + t * D + d);
+    bad |= static_cast<unsigned>(f) >= static_cast<unsigned>(F);
+    const double x = xs[min(max(f, 0), F - 1)];
+    idx |= static_cast<int>(x > load<kShared>(thr + t * D + d)) << d;
   }
+  const double v = load<kShared>(
+      leaves + (static_cast<long long>(t) << D) + idx);
+  return bad ? __longlong_as_double(0x7ff8000000000000LL) : v;
+}
 
-  // pairwise-sum state: current block length L, position p in it, the
-  // end of its 8-accumulator body, the accumulators, and the stack
-  double stack[kMaxStack];
-  int sp = 0;
-  int pc = 0;
-  int L = prog_len > 0 ? prog[pc++] : 0;
-  int body = L - (L & 7);
-  int p = 0;
-  double acc[8];
-  double res = 0.0;
-  bool bad_feature = false;
-
-  const int r = threadIdx.x;
-  for (int t0 = 0; t0 < T; t0 += tile) {
-    const int nt = min(tile, T - t0);
-    __syncthreads();  // X staged; the previous tile fully consumed
-    const double* lsrc = leaves + static_cast<long long>(t0) * kLeaves;
-#pragma unroll 4
-    for (int i = threadIdx.x; i < nt * kLeaves; i += blockDim.x) {
-      lv[i] = lsrc[i];
+// acc + the leaves of trees first, first + stride, ... (count of them),
+// added in that order, kInFlight trees' loads issued together (fewer for
+// deep trees, whose loads take more registers).
+template <int D, bool kShared>
+__device__ __forceinline__ double chain_sum(double acc, int first, int count,
+                                            int stride, const double* xs,
+                                            const int* feats,
+                                            const double* thr,
+                                            const double* leaves, int F) {
+  constexpr int kInFlight = D <= 4 ? 8 : 4;
+  for (int k = 0; k < count; k += kInFlight) {
+    double v[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int t = first + min(k + u, count - 1) * stride;
+      v[u] = tree_leaf<D, kShared>(t, xs, feats, thr, leaves, F);
     }
-    const long long off = static_cast<long long>(t0) * D;
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      if (k + u < count) acc += v[u];
+    }
+  }
+  return acc;
+}
+
+// A pairwise block of len >= 8 trees from `start` summed by one lane: the
+// 8 chains in registers, combined in numpy's grouping, then the remainder.
+template <int D, bool kShared>
+__device__ __forceinline__ double block_sum(int start, int len,
+                                            const double* xs,
+                                            const int* feats,
+                                            const double* thr,
+                                            const double* leaves, int F) {
+  double r[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r[j] = -0.0;
+  const int end = start + (len & ~7);
+  for (int t = start; t < end; t += 8) {
+    double v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      v[j] = tree_leaf<D, kShared>(t + j, xs, feats, thr, leaves, F);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r[j] += v[j];
+  }
+  double acc = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) +
+                                                  (r[6] + r[7]));
+  for (int t = end; t < start + len; ++t) {
+    acc += tree_leaf<D, kShared>(t, xs, feats, thr, leaves, F);
+  }
+  return acc;
+}
+
+// Copies nbytes (a multiple of 4) with 16-byte loads where both ends are
+// aligned, 4-byte loads otherwise, spread over the block.
+__device__ void stage(void* dst, const void* src, long long nbytes) {
+  const bool wide = ((reinterpret_cast<uintptr_t>(dst) |
+                      reinterpret_cast<uintptr_t>(src)) & 15) == 0;
+  long long done = 0;
+  if (wide) {
+    const long long n16 = nbytes >> 4;
+    const int4* s = static_cast<const int4*>(src);
+    int4* d = static_cast<int4*>(dst);
 #pragma unroll 4
-    for (int i = threadIdx.x; i < nt * D; i += blockDim.x) {
-      th[i] = thr[off + i];
-      ft[i] = feats[off + i];
+    for (long long i = threadIdx.x; i < n16; i += blockDim.x) {
+      d[i] = __ldg(s + i);
+    }
+    done = n16 << 4;
+  }
+  const int* s = static_cast<const int*>(src) + (done >> 2);
+  int* d = static_cast<int*>(dst) + (done >> 2);
+  for (long long i = threadIdx.x; i < (nbytes - done) >> 2; i += blockDim.x) {
+    d[i] = __ldg(s + i);
+  }
+}
+
+// Bytes of the staged ensemble: leaves, thresholds, then feature indices
+// padded to 16 bytes.
+__host__ __device__ inline long long ensemble_bytes(int T, int D) {
+  return 8LL * T * ((1LL << D) + D) + ((4LL * T * D + 15) & ~15LL);
+}
+
+// sched: (first tree, length) of each of n_blocks pairwise blocks, then
+// n_pairs (a, b) slot pairs (ref.lane_schedule). Block threads are a
+// multiple of 32 and of `group`; group is 1 (a lane walks the row's blocks
+// with the 8 chains in registers) or, for T >= 8, a power of two >= 8
+// (lanes take the chains in turns, shuffle-combined).
+template <int D, bool kStaged>
+__global__ void gbdt_predict_kernel(const double* __restrict__ X,
+                                    const int* __restrict__ feats,
+                                    const double* __restrict__ thr,
+                                    const double* __restrict__ leaves,
+                                    const int* __restrict__ sched,
+                                    int n_blocks, int n_pairs, double base,
+                                    double* __restrict__ out, int n, int F,
+                                    int T, int group) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int slots = n_blocks + n_pairs;
+  const int rows = blockDim.x / group;     // row groups per block
+  const int g = threadIdx.x / group;
+  const int lane = threadIdx.x - g * group;
+  const int* fe = feats;
+  const double* th = thr;
+  const double* lv = leaves;
+  long long ens = 0;
+  if constexpr (kStaged) {
+    double* s_lv = reinterpret_cast<double*>(smem);
+    double* s_th = s_lv + (static_cast<long long>(T) << D);
+    int* s_fe = reinterpret_cast<int*>(s_th + T * D);
+    stage(s_lv, leaves, 8LL * T << D);
+    stage(s_th, thr, 8LL * T * D);
+    stage(s_fe, feats, 4LL * T * D);
+    fe = s_fe;
+    th = s_th;
+    lv = s_lv;
+    ens = ensemble_bytes(T, D);
+  }
+  double* xs_all = reinterpret_cast<double*>(smem + ens);  // rows x F
+  double* xs = xs_all + g * F;
+  double* sums = xs_all + rows * F + g * slots;             // rows x slots
+  const int chains = T >= 8 ? 8 * n_blocks : min(T, 1);
+  const int rounds = (chains + group - 1) / group;
+  const int first_lane = (threadIdx.x & 31) & ~7;   // of this lane's 8
+  const long long n_row_blocks = (n + rows - 1) / rows;
+
+  for (long long rb = blockIdx.x; rb < n_row_blocks; rb += gridDim.x) {
+    const long long row = rb * rows + g;
+    const bool live = row < n;
+    const long long x0 = rb * rows * F;
+    const long long x_len = min(static_cast<long long>(n) * F - x0,
+                                static_cast<long long>(rows) * F);
+    __syncthreads();   // the staged ensemble, or the last rows' use of xs
+    for (long long i = threadIdx.x; i < x_len; i += blockDim.x) {
+      xs_all[i] = X[x0 + i];
     }
     __syncthreads();
-    if (r >= rows) continue;
-    for (int t8 = 0; t8 < nt; t8 += 8) {
-      const int m = min(8, nt - t8);
-      // eight independent tree walks first, so their loads overlap ...
-      double v[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int t = t8 + (j < m ? j : 0);
-        int idx = 0;
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          const int f = ft[t * D + d];
-          bad_feature |= static_cast<unsigned>(f) >=
-                         static_cast<unsigned>(F);
-          const double x = xs[min(max(f, 0), F - 1) * kRows + r];
-          idx |= static_cast<int>(x > th[t * D + d]) << d;
-        }
-        v[j] = lv[t * kLeaves + idx];
+    if (group == 1 && live) {   // one lane walks the whole row
+      if (chains == 1) {         // numpy starts the single chain from 0.0
+        sums[0] = chain_sum<D, kStaged>(0.0, 0, T, 1, xs, fe, th, lv, F);
       }
-      // ... then the sums, in numpy's order
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (j >= m) break;
-        if (L < 8) {
-          res += v[j];
-        } else if (p < 8) {
-          acc[j] = v[j];       // p == j: blocks start at multiples of 8
-        } else if (p < body) {
-          acc[j] += v[j];
-        } else {
-          if (p == body) res = combine8(acc);
-          res += v[j];
-        }
-        if (++p == L) {        // block done: push it, run the adds
-          if (L >= 8 && body == L) res = combine8(acc);
-          stack[sp++] = res;
-          while (pc < prog_len && prog[pc] == 0) {
-            const double b = stack[--sp];
-            const double a = stack[--sp];
-            stack[sp++] = a + b;
-            ++pc;
-          }
-          if (pc < prog_len) {
-            L = prog[pc++];
-            body = L - (L & 7);
-          }
-          p = 0;
-          res = 0.0;
-        }
+      for (int b = 0; chains >= 8 && b < n_blocks; ++b) {
+        sums[b] = block_sum<D, kStaged>(__ldg(sched + 2 * b),
+                                        __ldg(sched + 2 * b + 1), xs, fe,
+                                        th, lv, F);
       }
     }
-  }
-  if (r < rows) {
-    // numpy's reduction starts from 0.0; a feature index outside [0, F)
-    // poisons the row instead of reading out of bounds
-    const double total = 0.0 + (prog_len > 0 ? stack[0] : 0.0);
-    out[row0 + r] = bad_feature ? __longlong_as_double(0x7ff8000000000000LL)
-                                : base + total;
+    for (int r = 0; group > 1 && r < rounds; ++r) {
+      const int c = lane + r * group;
+      const bool mine = live && c < chains;
+      double acc = 0.0;
+      double rem_leaf = 0.0;
+      int rem = 0;
+      if (mine) {
+        const int start = __ldg(sched + 2 * (c >> 3));
+        const int len = __ldg(sched + 2 * (c >> 3) + 1);
+        const int j = c & 7;
+        const int body = len & ~7;
+        // -0.0 is the additive identity: the chain equals its first term
+        acc = chain_sum<D, kStaged>(-0.0, start + j, body >> 3, 8, xs, fe,
+                                    th, lv, F);
+        rem = len - body;
+        if (j < rem) {
+          rem_leaf = tree_leaf<D, kStaged>(start + body + j, xs, fe, th, lv,
+                                           F);
+        }
+      }
+      // every lane of the launch shuffles: groups are 8-lane aligned
+      acc += __shfl_xor_sync(kFull, acc, 1);
+      acc += __shfl_xor_sync(kFull, acc, 2);
+      acc += __shfl_xor_sync(kFull, acc, 4);
+#pragma unroll
+      for (int i = 0; i < 7; ++i) {
+        const double v = __shfl_sync(kFull, rem_leaf, first_lane + i);
+        if (i < rem) acc += v;
+      }
+      if (mine && (c & 7) == 0) sums[c >> 3] = acc;
+    }
+    __syncthreads();
+    if (live && lane == 0) {
+      double total = 0.0;
+      if (slots > 0) {
+        for (int k = 0; k < n_pairs; ++k) {
+          const int* p = sched + 2 * (n_blocks + k);
+          sums[n_blocks + k] = sums[__ldg(p)] + sums[__ldg(p + 1)];
+        }
+        total = sums[slots - 1];
+      }
+      // numpy's reduction adds its pairwise sum to an initial 0.0
+      out[row] = base + (0.0 + total);
+    }
   }
 }
 
+__global__ void empty_kernel() {}
+
 template <int D>
-void launch_depth(const double* X, const int* feats, const double* thr,
-                  const double* leaves, const int* prog, int prog_len,
-                  double base, double* out, int n, int F, int T, int tile,
-                  size_t smem, cudaStream_t stream) {
-  const int blocks = (n + kRows - 1) / kRows;
-  gbdt_predict_kernel<D><<<blocks, kRows, smem, stream>>>(
-      X, feats, thr, leaves, prog, prog_len, base, out, n, F, T, tile);
+cudaError_t launch_depth(const double* X, const int* feats,
+                         const double* thr, const double* leaves,
+                         const int* sched, int n_blocks, int n_pairs,
+                         double base, double* out, int n, int F, int T,
+                         int group, cudaStream_t stream) {
+  constexpr bool kStaged = GBDT_STAGE_ENSEMBLE != 0;
+  const int step = group > 32 ? group : 32;
+  const long long per_row = 8LL * (F + n_blocks + n_pairs);
+  const long long ens = kStaged ? ensemble_bytes(T, D) : 0;
+  const long long limit = kStaged ? kStagedSmemBytes : kSmemBytes;
+  int threads = group > kThreads ? group : kThreads;
+  int sms = 0;
+  if (kStaged) {   // about n / SMs rows a block, at most 1024 threads
+    cudaError_t e = cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, 0);
+    if (e != cudaSuccess) return e;
+    const long long want = (static_cast<long long>(n) + sms - 1) / sms *
+                           group;
+    threads = static_cast<int>(
+        std::min(1024LL, (want + step - 1) / step * step));
+  }
+  const auto smem = [&](int t) { return ens + t / group * per_row; };
+  while (smem(threads) > limit && threads > step) threads -= step;
+  if (smem(threads) > limit) return cudaErrorInvalidValue;
+  const long long rows = threads / group;
+  long long blocks = (n + rows - 1) / rows;
+  if (kStaged) {
+    blocks = std::min(blocks, static_cast<long long>(sms));
+    if (smem(threads) > kSmemBytes) {
+      cudaError_t e = cudaFuncSetAttribute(
+          gbdt_predict_kernel<D, kStaged>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem(threads)));
+      if (e != cudaSuccess) return e;
+    }
+  }
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  gbdt_predict_kernel<D, kStaged>
+      <<<static_cast<unsigned>(blocks), threads,
+         static_cast<size_t>(smem(threads)), stream>>>(
+          X, feats, thr, leaves, sched, n_blocks, n_pairs, base, out, n, F,
+          T, group);
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The largest tree tile (a multiple of 8) that fits beside the block's rows
-// of X in shared memory; 0 when not even 8 trees fit.
-int gbdt_predict_tile(int F, int depth) {
-  const long long per_tree = (8LL << depth) + 12LL * depth;
-  const long long room = kSmemBytes - 8LL * F * kRows;
-  if (room < 8 * per_tree) return 0;
-  return static_cast<int>(room / per_tree) & ~7;
-}
-
-// Launches the kernel on `stream` and returns cudaGetLastError(): a launch
-// the runtime refuses never runs, and a later synchronize would not say so.
+// Launches the kernel on `stream` and returns cudaGetLastError() (or the
+// configuration error found first): a launch the runtime refuses never
+// runs, and a later synchronize would not say so. `group` lanes share a
+// row: 1 (any T), or for T >= 8 a power of two from 8 to 1024.
 int gbdt_predict_f64(const void* X, const void* feats, const void* thr,
-                     const void* leaves, const void* prog, int prog_len,
-                     double base, void* out, int n, int F, int T, int depth,
-                     void* stream) {
-  if (n <= 0 || F <= 0 || T < 0 || depth < 0 || depth > kMaxDepth) {
+                     const void* leaves, const void* sched, int n_blocks,
+                     int n_pairs, double base, void* out, int n, int F,
+                     int T, int depth, int group, void* stream) {
+  const bool group_ok = group == 1 ||
+                        (T >= 8 && group >= 8 && group <= kMaxGroup &&
+                         (group & (group - 1)) == 0);
+  if (n <= 0 || F <= 0 || T < 0 || depth < 0 || depth > kMaxDepth ||
+      n_blocks < 0 || n_pairs < 0 || !group_ok) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int tile_max = gbdt_predict_tile(F, depth);
-  if (tile_max < 8) return static_cast<int>(cudaErrorInvalidValue);
-  const int t_up = (T + 7) & ~7;
-  const int tile = t_up < 8 ? 8 : (t_up < tile_max ? t_up : tile_max);
-  const size_t smem = 8ull * F * kRows
-                      + static_cast<size_t>(tile) * ((8ull << depth)
-                                                      + 12ull * depth);
   const double* x = static_cast<const double*>(X);
   const int* f = static_cast<const int*>(feats);
   const double* th = static_cast<const double*>(thr);
   const double* lv = static_cast<const double*>(leaves);
-  const int* pr = static_cast<const int*>(prog);
+  const int* sc = static_cast<const int*>(sched);
   double* o = static_cast<double*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
   switch (depth) {  // depth is a template argument: tree walks unroll
-#define GBDT_DEPTH(D)                                                    \
-    case D:                                                              \
-      launch_depth<D>(x, f, th, lv, pr, prog_len, base, o, n, F, T, tile, \
-                      smem, s);                                          \
+#define GBDT_DEPTH(D)                                                     \
+    case D:                                                               \
+      e = launch_depth<D>(x, f, th, lv, sc, n_blocks, n_pairs, base, o, n, \
+                          F, T, group, s);                                \
       break;
     GBDT_DEPTH(0) GBDT_DEPTH(1) GBDT_DEPTH(2) GBDT_DEPTH(3) GBDT_DEPTH(4)
     GBDT_DEPTH(5) GBDT_DEPTH(6) GBDT_DEPTH(7) GBDT_DEPTH(8)
 #undef GBDT_DEPTH
   }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One empty kernel on `stream`: the card's launch floor, timed beside the
+// kernel (chip_smoke.py phase 2).
+int gbdt_launch_floor(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,6 +5,11 @@ Pallas TPU kernel ``repro/kernels/gbdt_predict.py::gbdt_predict``. It is
 built with the port's other kernels into one library on first use
 (:mod:`repro_torch.kernels.build`); nothing here runs at import time.
 
+A row's trees are summed on a group of lanes, one lane per chain of
+numpy's pairwise order (:func:`repro_torch.kernels.ref.lane_schedule`,
+cached per T on each device). :func:`group_width` picks the group from
+the chain count and the batch; any width gives the same bits.
+
 :data:`launches` counts kernel launches: :func:`launch` adds one each time
 the kernel is launched, and nothing else touches it except a caller
 resetting it to 0.
@@ -17,17 +22,27 @@ import functools
 import torch
 
 from .build import library
-from .ref import pairwise_program
+from .ref import lane_schedule
 
-__all__ = ["MAX_DEPTH", "build", "launch"]
+__all__ = ["MAX_DEPTH", "build", "group_width", "launch", "schedule"]
 
 MAX_DEPTH = 8
+#: The widest lane group a row gets; more chains than this take turns.
+MAX_GROUP = 64
+#: Lanes (rows x group) past which groups narrow toward 8: the card is
+#: full, and narrower groups share each tree's loads between more rows of
+#: a warp.
+FILL_LANES = 132 * 512
+#: Rows from which one lane walks a whole row: all 32 rows of a warp then
+#: read the same tree (on the H100 faster than 8 lanes at 65536 rows,
+#: slower at 16384; PERF.md).
+ONE_LANE_ROWS = 32768
 
 #: Kernel launches since import (or since a caller last reset it to 0).
 launches = 0
 
-#: (T, device) -> the summation program for T trees, int32 on the device
-_programs: dict = {}
+#: (T, device) -> (schedule int32 on the device, n_blocks, n_pairs, chains)
+_schedules: dict = {}
 
 
 @functools.cache
@@ -35,49 +50,69 @@ def build() -> ctypes.CDLL:
     """Build (or reuse) the kernel library and bind this kernel's C entry
     points."""
     lib = library()
-    ptr = ctypes.c_void_p
+    ptr, cint = ctypes.c_void_p, ctypes.c_int
     lib.gbdt_predict_f64.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_double, ptr,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
-    lib.gbdt_predict_f64.restype = ctypes.c_int
-    lib.gbdt_predict_tile.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.gbdt_predict_tile.restype = ctypes.c_int
-    lib.gbdt_predict_error_string.argtypes = [ctypes.c_int]
+        ptr, ptr, ptr, ptr, ptr, cint, cint, ctypes.c_double, ptr, cint,
+        cint, cint, cint, cint, ptr]
+    lib.gbdt_predict_f64.restype = cint
+    lib.gbdt_launch_floor.argtypes = [ptr]
+    lib.gbdt_launch_floor.restype = cint
+    lib.gbdt_predict_error_string.argtypes = [cint]
     lib.gbdt_predict_error_string.restype = ctypes.c_char_p
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _fits(F: int, depth: int) -> bool:
-    """Do 8 trees of this depth fit beside 64 rows of F features?"""
-    return build().gbdt_predict_tile(F, depth) >= 8
+def group_width(n: int, chains: int) -> int:
+    """Lanes per row: one for a single chain or from
+    :data:`ONE_LANE_ROWS` rows on, else the smallest power of two >= the
+    chain count, at most :data:`MAX_GROUP`, halved toward 8 while ``n``
+    rows would take more than :data:`FILL_LANES` lanes."""
+    if chains <= 1 or n >= ONE_LANE_ROWS:
+        return 1
+    g = min(1 << (chains - 1).bit_length(), MAX_GROUP)
+    while g > 8 and n * g > FILL_LANES:
+        g //= 2
+    return g
+
+
+def schedule(T: int, device: torch.device) -> tuple:
+    """T's lane schedule flattened for the kernel (block (first, length)
+    pairs, then the combine program's slot pairs), cached on ``device``."""
+    key = (T, device)
+    if key not in _schedules:
+        s = lane_schedule(T)
+        flat = [v for pair in s.blocks + s.pairs for v in pair] or [0]
+        _schedules[key] = (torch.tensor(flat, dtype=torch.int32,
+                                        device=device),
+                           len(s.blocks), len(s.pairs), s.chains)
+    return _schedules[key]
 
 
 def launch(X: torch.Tensor, feats: torch.Tensor, thresholds: torch.Tensor,
-           leaves: torch.Tensor, base: float, out: torch.Tensor) -> None:
+           leaves: torch.Tensor, base: float, out: torch.Tensor,
+           group: "int | None" = None) -> None:
     """Launch the kernel on the current stream; the caller has validated
-    every argument (:func:`repro_torch.kernels.ops.gbdt_predict`). Raises
-    if the runtime refuses the launch."""
+    every argument (:func:`repro_torch.kernels.ops.gbdt_predict`).
+    ``group`` overrides :func:`group_width` (every width gives the same
+    bits; the card tests hold them to it). Raises if
+    the runtime refuses the launch."""
     global launches
     lib = build()
     n, F = X.shape
     T, depth = thresholds.shape
-    if not _fits(F, depth):
-        raise ValueError(f"{F} features at depth {depth} do not fit the "
-                         "kernel's shared-memory tile")
-    prog = _programs.get((T, X.device))
-    if prog is None:
-        prog = torch.tensor(pairwise_program(T) or (0,), dtype=torch.int32,
-                            device=X.device)
-        _programs[(T, X.device)] = prog
+    sched, n_blocks, n_pairs, chains = schedule(T, X.device)
+    if group is None:
+        group = group_width(n, chains)
     # the library's runtime launches into whichever card is current
     with torch.cuda.device(X.device):
         err = lib.gbdt_predict_f64(
             X.data_ptr(), feats.data_ptr(), thresholds.data_ptr(),
-            leaves.data_ptr(), prog.data_ptr(), len(pairwise_program(T)),
-            float(base), out.data_ptr(), n, F, T, depth,
+            leaves.data_ptr(), sched.data_ptr(), n_blocks, n_pairs,
+            float(base), out.data_ptr(), n, F, T, depth, group,
             torch.cuda.current_stream(X.device).cuda_stream)
     if err != 0:
         msg = lib.gbdt_predict_error_string(err).decode()
-        raise RuntimeError(f"gbdt_predict kernel launch failed: {msg}")
+        raise RuntimeError(f"gbdt_predict kernel launch failed (n={n}, "
+                           f"T={T}, depth={depth}, F={F}, group={group}): "
+                           f"{msg}")
     launches += 1

@@ -21,12 +21,14 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-__all__ = ["NEG_INF", "flash_attention_ref", "gbdt_predict_numpy",
-           "gbdt_predict_ref", "mamba_scan_ref", "pairwise_program"]
+__all__ = ["LaneSchedule", "NEG_INF", "flash_attention_ref",
+           "gbdt_predict_numpy", "gbdt_predict_ref", "lane_schedule",
+           "lane_sum", "mamba_scan_ref", "pairwise_program"]
 
 #: The reference's mask value: large and negative, finite in fp32 and bf16.
 NEG_INF = -2.0 ** 30
@@ -48,6 +50,78 @@ def pairwise_program(T: int) -> tuple[int, ...]:
     half = T // 2
     half -= half % _UNROLL
     return pairwise_program(half) + pairwise_program(T - half) + (0,)
+
+
+class LaneSchedule(NamedTuple):
+    """numpy's pairwise order for ``T`` terms cut into independent chains,
+    as the CUDA GBDT kernel sums them (:func:`lane_schedule`)."""
+    #: (first term, length) of each pairwise block, in order
+    blocks: tuple[tuple[int, int], ...]
+    #: the combine program over slots: slot ``len(blocks) + k`` is
+    #: ``slot[a] + slot[b]`` for the k-th pair ``(a, b)``; slots
+    #: ``0 .. len(blocks) - 1`` are the block sums; the last slot is the
+    #: total
+    pairs: tuple[tuple[int, int], ...]
+    #: independent running sums: 8 per block when T >= 8 (chain j of a
+    #: block takes its terms j, j + 8, ... of the 8-accumulator body), else
+    #: one chain over all T terms (or none when T = 0)
+    chains: int
+
+
+@functools.lru_cache(maxsize=None)
+def lane_schedule(T: int) -> LaneSchedule:
+    """Cut :func:`pairwise_program` into chains. Every block of a program
+    for ``T >= 8`` terms holds at least 8, so it is 8 interleaved chains
+    plus ``L % 8`` remainder terms added in order after combining them;
+    below 8 terms the program is one block summed by one running chain."""
+    blocks, pairs, stack, start = [], [], [], 0
+    prog = pairwise_program(T)
+    n_blocks = sum(1 for op in prog if op)
+    for op in prog:
+        if op:
+            stack.append(len(blocks))
+            blocks.append((start, op))
+            start += op
+        else:
+            b, a = stack.pop(), stack.pop()
+            stack.append(n_blocks + len(pairs))
+            pairs.append((a, b))
+    chains = 8 * n_blocks if T >= _UNROLL else min(T, 1)
+    return LaneSchedule(tuple(blocks), tuple(pairs), chains)
+
+
+def lane_sum(c: torch.Tensor, sched: LaneSchedule) -> torch.Tensor:
+    """Row sums of ``c`` (n, T) computed as the CUDA kernel computes them
+    from ``sched``: each chain summed on its own (from -0.0, the additive
+    identity, in an 8-chain block; from 0.0 in the single chain below 8
+    terms, as numpy starts), each block's 8 chains combined by xor-shuffles
+    over lanes 1, 2 and 4 apart, its remainder terms added in order, then
+    the pair program over the block sums, and numpy's initial 0.0. Equals
+    ``c.sum(axis=1)`` in numpy bit for bit; the CPU tests hold it there."""
+    n, T = c.shape
+    zero = torch.zeros(n, dtype=c.dtype, device=c.device)
+    if sched.chains == 0:
+        return 0.0 + zero
+    if sched.chains == 1:
+        acc = zero
+        for t in range(T):
+            acc = acc + c[:, t]
+        return 0.0 + acc
+    slots = []
+    for start, L in sched.blocks:
+        body = L - L % _UNROLL
+        acc = torch.full((n, _UNROLL), -0.0, dtype=c.dtype, device=c.device)
+        for k in range(start, start + body, _UNROLL):
+            acc = acc + c[:, k:k + _UNROLL]
+        for width in (1, 2, 4):      # lane j takes lane j ^ width's sum
+            acc = acc + acc[:, torch.arange(_UNROLL) ^ width]
+        res = acc[:, 0]
+        for t in range(start + body, start + L):
+            res = res + c[:, t]
+        slots.append(res)
+    for a, b in sched.pairs:
+        slots.append(slots[a] + slots[b])
+    return 0.0 + slots[-1]
 
 
 def _pairwise_rows(c: torch.Tensor) -> torch.Tensor:

@@ -49,6 +49,10 @@ def _ensemble(seed, n, T, depth, F, device):
 @pytest.mark.parametrize("n,T,depth,F", [
     (17, 9, 2, 5), (64, 64, 4, 23), (8, 130, 6, 8), (768, 400, 4, 23),
     (300, 50, 8, 23), (1, 1000, 3, 23), (5, 0, 4, 23), (129, 7, 0, 3),
+    (64, 80, 3, 23),                        # the golden-trace predictor
+    (33, 1000, 8, 23),                      # a 2.1 MB ensemble
+    (1, 400, 4, 23), (4097, 400, 4, 23),    # a ragged last row group
+    (50, 130, 5, 23), (40, 260, 4, 23),     # remainders; unbalanced combine
 ])
 def test_kernel_equals_plain_version_bitwise(n, T, depth, F):
     dev = _card()
@@ -62,10 +66,30 @@ def test_kernel_equals_plain_version_bitwise(n, T, depth, F):
     assert torch.equal(got.cpu(), cpu)
 
 
+@pytest.mark.parametrize("n,T", [(3, 400), (70, 1000), (9, 130)])
+def test_every_lane_group_width_gives_the_same_bits(n, T):
+    """Chains keep their order whatever the group width (one lane walking
+    the row's blocks, 8 lanes taking turns through the chains, up to a
+    group per chain)."""
+    dev = _card()
+    X, feats, thr, leaves = _ensemble(3, n, T, 4, 23, dev)
+    want = ref.gbdt_predict_ref(X, feats, thr, leaves, base=0.5)
+    for group in (1, 8, 16, 32, 64, 128):
+        out = torch.empty(n, dtype=torch.float64, device=dev)
+        gp.launch(X, feats, thr, leaves, 0.5, out, group=group)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), group
+
+
 def test_out_of_range_feature_poisons_the_row():
     dev = _card()
     X, feats, thr, leaves = _ensemble(1, 3, 4, 2, 5, dev)
     feats[2, 1] = 7
+    got = ops.gbdt_predict(X, feats, thr, leaves)
+    torch.cuda.synchronize()
+    assert torch.isnan(got).all()
+    X, feats, thr, leaves = _ensemble(1, 5, 400, 4, 23, dev)
+    feats[397, 0] = -1                      # a chain's last tree
     got = ops.gbdt_predict(X, feats, thr, leaves)
     torch.cuda.synchronize()
     assert torch.isnan(got).all()

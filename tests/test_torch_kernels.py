@@ -98,6 +98,55 @@ def test_summation_order_is_numpys(T):
     assert sum(op for op in ref.pairwise_program(T)) == T
 
 
+def test_lane_schedule_sums_in_numpys_order():
+    """The kernel's chains, 8-lane xor-shuffle combines, remainders and pair
+    program (emulated by ``ref.lane_sum`` from the host schedule) give
+    numpy's ``contrib.sum(axis=1)`` bit for bit at every T up to 1100."""
+    for T in range(0, 1101):
+        rng = np.random.default_rng(T)
+        c = rng.normal(size=(4, T)) * 10.0 ** rng.uniform(-8, 8, (4, T))
+        c[0, ::7] = -0.0                    # signed zeros keep their signs
+        c[1] = -0.0
+        got = ref.lane_sum(torch.from_numpy(c), ref.lane_schedule(T))
+        np.testing.assert_array_equal(got.numpy(), c.sum(axis=1),
+                                      err_msg=f"T={T}")
+        assert np.array_equal(np.signbit(got.numpy()),
+                              np.signbit(c.sum(axis=1))), T
+
+
+@pytest.mark.parametrize("T,chains,blocks,pairs", [
+    (0, 0, (), ()), (5, 1, ((0, 5),), ()), (50, 8, ((0, 50),), ()),
+    (80, 8, ((0, 80),), ()),
+    (130, 16, ((0, 64), (64, 66)), ((0, 1),)),
+    (260, 24, ((0, 128), (128, 64), (192, 68)), ((1, 2), (0, 3))),
+    (400, 32, ((0, 96), (96, 104), (200, 96), (296, 104)),
+     ((0, 1), (2, 3), (4, 5))),
+])
+def test_lane_schedule_layout(T, chains, blocks, pairs):
+    s = ref.lane_schedule(T)
+    assert (s.chains, s.blocks, s.pairs) == (chains, blocks, pairs)
+    flat, n_blocks, n_pairs, n_chains = gp.schedule(T, torch.device("cpu"))
+    assert (n_blocks, n_pairs, n_chains) == (len(blocks), len(pairs), chains)
+    assert flat.dtype == torch.int32
+    assert flat.tolist() == ([v for p in blocks + pairs for v in p] or [0])
+
+
+def test_lane_schedule_chain_counts():
+    assert ref.lane_schedule(1000).chains == 64
+    assert all(ref.lane_schedule(T).chains % 8 == 0 for T in range(8, 1101))
+
+
+@pytest.mark.parametrize("n,chains,group", [
+    (1, 0, 1), (1, 1, 1), (5000, 1, 1), (1, 8, 8), (64, 8, 8),
+    (1, 24, 32), (1, 32, 32), (768, 32, 32), (4096, 32, 16),
+    (16384, 32, 8), (32767, 32, 8), (32768, 32, 1), (65536, 32, 1),
+    (1, 64, 64), (768, 64, 64), (4096, 64, 16), (8000, 64, 8),
+    (1, 128, 64),
+])
+def test_group_width(n, chains, group):
+    assert gp.group_width(n, chains) == group
+
+
 def test_wrapper_is_the_plain_version_on_cpu():
     X, feats, thr, leaves = _ensemble(3, 50, 40, 5, 23)
     t = [torch.from_numpy(a) for a in (X, feats.astype(np.int32), thr,
