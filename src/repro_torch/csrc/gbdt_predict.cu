@@ -21,50 +21,40 @@
 // running sum from 0.0.
 //
 // Design. Neither bytes nor operations bound it: on the scheduler's main
-// path the kernel evaluates 768 rows x 400 trees of depth 4 per regressor
-// (a prefetch batch) or a single row, about 0.2 MB to move and 1.5 M
-// compares and adds, well under a microsecond at the card's memory and fp64
-// rates. Latency does: the launch, and the chain of dependent loads per
-// tree (feature index, then the row's X, then the leaf) times the trees a
-// thread walks in series. So a row's chains run on separate lanes: a group
-// of G lanes (a power of two >= 8, chosen by the wrapper from the chain
-// count and the batch) owns a row, lane l sums chains l, l + G, ... of it,
-// with 8 trees' loads in flight (4 past depth 4). The 8 chains of a block
-// sit on 8 aligned lanes and are combined by xor-shuffles over 1, 2 and 4
-// lanes, which reproduce numpy's grouping exactly (IEEE addition
-// commutes); the remainder terms, evaluated by the block's first lanes, are
-// shuffled to every lane and added in order. Each block's first lane
-// writes its sum to shared memory, and the row's first lane runs the pair
-// program there. No atomics: nothing depends on timing. A chain's trees
-// sit 8 apart, so neighbouring lanes read neighbouring trees: the ensemble
-// (70 KB at the main shape) is read through the read-only path straight
-// from L1 and L2, with no block-wide stage, no __syncthreads per tile and
-// no shared-memory limit on T. The row group's X (F doubles) is staged in
-// shared memory and gathered from there, the index clamped. Blocks hold 128
-// threads (or one group, if wider), so 768 rows of 32 lanes are 192 blocks
-// over the 132 SMs. The main shape then takes about 6-9 times an empty
-// kernel's launch (PERF.md). For very large batches the wrapper gives a
-// row one lane (G = 1), which walks the row's blocks with the 8 chains in
-// registers, as the previous kernel did: every lane of a warp then reads
-// the same tree, so the load instructions serve 32 rows, which pays once
-// load throughput, not latency, is the limit. A feature index outside
-// [0, F) makes its tree's leaf NaN, which poisons the row; the index is
-// never used unclamped.
-//
-// Built with -DGBDT_STAGE_ENSEMBLE=1 (scripts/gbdt_routes.py), the kernel
-// instead runs at most one block per SM, stages the whole ensemble in
-// shared memory once per block and loops over its row groups: the
-// alternative that PERF.md records beside this one (slower from 1 to 768
-// rows, where it copies 70 KB before its first tree; faster from 4096).
+// path the kernel evaluates 768 rows x 400 trees of depth 4 per regressor (a
+// prefetch batch) or a single row, about 0.2 MB to move and 1.5 M compares
+// and adds, well under a microsecond at the card's memory and fp64 rates.
+// Latency does: the launch, and the chain of dependent loads per tree
+// (feature index, then the row's X, then the leaf) times the trees a thread
+// walks in series. So a row's chains run on separate lanes: a group of G
+// lanes (a power of two >= 8, chosen by the wrapper from the chain count,
+// the batch and the SM count) owns a row, lane l sums chains l, l + G, ...
+// of it, unrolled 8 trees at a time (4 past depth 4; the compiler keeps
+// fewer of their loads in flight, PERF.md). The 8 chains of a block sit on 8
+// aligned lanes and are combined by xor-shuffles over 1, 2 and 4 lanes,
+// which reproduce numpy's grouping exactly (IEEE addition commutes); the
+// remainder terms, evaluated by the block's first lanes, are shuffled to
+// every lane and added in order. Each block's first lane writes its sum to
+// shared memory, and the row's first lane runs the pair program there. No
+// atomics: nothing depends on timing. A chain's trees sit 8 apart, so
+// neighbouring lanes read neighbouring trees: the ensemble (70 KB at the
+// main shape) is read through the read-only path straight from L1 and L2,
+// with no block-wide stage, no __syncthreads per tile and no shared-memory
+// limit on T. The row group's X (F doubles) is staged in shared memory and
+// gathered from there, the index clamped. Blocks hold 128 threads (or one
+// group, if wider), so 768 rows of 32 lanes are 192 blocks over the 132 SMs.
+// The main shape then takes about 6-9 times an empty kernel's launch
+// (PERF.md). For very large batches the wrapper gives a row one lane (G =
+// 1), which walks the row's blocks with the 8 chains in registers, as the
+// previous kernel did: every lane of a warp then reads the same tree, so the
+// load instructions serve 32 rows, which pays once load throughput, not
+// latency, is the limit. A feature index outside [0, F) makes its tree's
+// leaf NaN, which poisons the row; the index is never used unclamped.
+// (Staging the ensemble in shared memory once per SM instead was measured
+// slower from 1 to 768 rows, where a block copies 70 KB before its first
+// tree, and faster from 4096; PERF.md.)
 
 #include <cuda_runtime.h>
-
-#include <algorithm>
-#include <cstdint>
-
-#ifndef GBDT_STAGE_ENSEMBLE
-#define GBDT_STAGE_ENSEMBLE 0
-#endif
 
 namespace {
 
@@ -72,22 +62,12 @@ constexpr int kMaxDepth = 8;
 constexpr int kThreads = 128;          // threads per block, unless G is wider
 constexpr int kMaxGroup = 1024;
 constexpr int kSmemBytes = 48 * 1024;  // no opt-in needed below this
-constexpr int kStagedSmemBytes = 232448;
 constexpr unsigned kFull = 0xffffffffu;
-
-template <bool kShared, typename V>
-__device__ __forceinline__ V load(const V* p) {
-  if constexpr (kShared) {
-    return *p;
-  } else {
-    return __ldg(p);
-  }
-}
 
 // Tree t's leaf for the row whose features sit at xs; NaN when the tree
 // names a feature outside [0, F) (the gather is clamped, never out of
 // bounds).
-template <int D, bool kShared>
+template <int D>
 __device__ __forceinline__ double tree_leaf(int t, const double* xs,
                                             const int* feats,
                                             const double* thr,
@@ -96,20 +76,19 @@ __device__ __forceinline__ double tree_leaf(int t, const double* xs,
   bool bad = false;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    const int f = load<kShared>(feats + t * D + d);
+    const int f = __ldg(feats + t * D + d);
     bad |= static_cast<unsigned>(f) >= static_cast<unsigned>(F);
     const double x = xs[min(max(f, 0), F - 1)];
-    idx |= static_cast<int>(x > load<kShared>(thr + t * D + d)) << d;
+    idx |= static_cast<int>(x > __ldg(thr + t * D + d)) << d;
   }
-  const double v = load<kShared>(
-      leaves + (static_cast<long long>(t) << D) + idx);
+  const double v = __ldg(leaves + (static_cast<long long>(t) << D) + idx);
   return bad ? __longlong_as_double(0x7ff8000000000000LL) : v;
 }
 
 // acc + the leaves of trees first, first + stride, ... (count of them),
 // added in that order, kInFlight trees' loads issued together (fewer for
 // deep trees, whose loads take more registers).
-template <int D, bool kShared>
+template <int D>
 __device__ __forceinline__ double chain_sum(double acc, int first, int count,
                                             int stride, const double* xs,
                                             const int* feats,
@@ -121,7 +100,7 @@ __device__ __forceinline__ double chain_sum(double acc, int first, int count,
 #pragma unroll
     for (int u = 0; u < kInFlight; ++u) {
       const int t = first + min(k + u, count - 1) * stride;
-      v[u] = tree_leaf<D, kShared>(t, xs, feats, thr, leaves, F);
+      v[u] = tree_leaf<D>(t, xs, feats, thr, leaves, F);
     }
 #pragma unroll
     for (int u = 0; u < kInFlight; ++u) {
@@ -133,7 +112,7 @@ __device__ __forceinline__ double chain_sum(double acc, int first, int count,
 
 // A pairwise block of len >= 8 trees from `start` summed by one lane: the
 // 8 chains in registers, combined in numpy's grouping, then the remainder.
-template <int D, bool kShared>
+template <int D>
 __device__ __forceinline__ double block_sum(int start, int len,
                                             const double* xs,
                                             const int* feats,
@@ -147,7 +126,7 @@ __device__ __forceinline__ double block_sum(int start, int len,
     double v[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      v[j] = tree_leaf<D, kShared>(t + j, xs, feats, thr, leaves, F);
+      v[j] = tree_leaf<D>(t + j, xs, feats, thr, leaves, F);
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) r[j] += v[j];
@@ -155,38 +134,9 @@ __device__ __forceinline__ double block_sum(int start, int len,
   double acc = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) +
                                                   (r[6] + r[7]));
   for (int t = end; t < start + len; ++t) {
-    acc += tree_leaf<D, kShared>(t, xs, feats, thr, leaves, F);
+    acc += tree_leaf<D>(t, xs, feats, thr, leaves, F);
   }
   return acc;
-}
-
-// Copies nbytes (a multiple of 4) with 16-byte loads where both ends are
-// aligned, 4-byte loads otherwise, spread over the block.
-__device__ void stage(void* dst, const void* src, long long nbytes) {
-  const bool wide = ((reinterpret_cast<uintptr_t>(dst) |
-                      reinterpret_cast<uintptr_t>(src)) & 15) == 0;
-  long long done = 0;
-  if (wide) {
-    const long long n16 = nbytes >> 4;
-    const int4* s = static_cast<const int4*>(src);
-    int4* d = static_cast<int4*>(dst);
-#pragma unroll 4
-    for (long long i = threadIdx.x; i < n16; i += blockDim.x) {
-      d[i] = __ldg(s + i);
-    }
-    done = n16 << 4;
-  }
-  const int* s = static_cast<const int*>(src) + (done >> 2);
-  int* d = static_cast<int*>(dst) + (done >> 2);
-  for (long long i = threadIdx.x; i < (nbytes - done) >> 2; i += blockDim.x) {
-    d[i] = __ldg(s + i);
-  }
-}
-
-// Bytes of the staged ensemble: leaves, thresholds, then feature indices
-// padded to 16 bytes.
-__host__ __device__ inline long long ensemble_bytes(int T, int D) {
-  return 8LL * T * ((1LL << D) + D) + ((4LL * T * D + 15) & ~15LL);
 }
 
 // sched: (first tree, length) of each of n_blocks pairwise blocks, then
@@ -194,7 +144,7 @@ __host__ __device__ inline long long ensemble_bytes(int T, int D) {
 // multiple of 32 and of `group`; group is 1 (a lane walks the row's blocks
 // with the 8 chains in registers) or, for T >= 8, a power of two >= 8
 // (lanes take the chains in turns, shuffle-combined).
-template <int D, bool kStaged>
+template <int D>
 __global__ void gbdt_predict_kernel(const double* __restrict__ X,
                                     const int* __restrict__ feats,
                                     const double* __restrict__ thr,
@@ -208,95 +158,73 @@ __global__ void gbdt_predict_kernel(const double* __restrict__ X,
   const int rows = blockDim.x / group;     // row groups per block
   const int g = threadIdx.x / group;
   const int lane = threadIdx.x - g * group;
-  const int* fe = feats;
-  const double* th = thr;
-  const double* lv = leaves;
-  long long ens = 0;
-  if constexpr (kStaged) {
-    double* s_lv = reinterpret_cast<double*>(smem);
-    double* s_th = s_lv + (static_cast<long long>(T) << D);
-    int* s_fe = reinterpret_cast<int*>(s_th + T * D);
-    stage(s_lv, leaves, 8LL * T << D);
-    stage(s_th, thr, 8LL * T * D);
-    stage(s_fe, feats, 4LL * T * D);
-    fe = s_fe;
-    th = s_th;
-    lv = s_lv;
-    ens = ensemble_bytes(T, D);
-  }
-  double* xs_all = reinterpret_cast<double*>(smem + ens);  // rows x F
+  double* xs_all = reinterpret_cast<double*>(smem);         // rows x F
   double* xs = xs_all + g * F;
   double* sums = xs_all + rows * F + g * slots;             // rows x slots
   const int chains = T >= 8 ? 8 * n_blocks : min(T, 1);
   const int rounds = (chains + group - 1) / group;
   const int first_lane = (threadIdx.x & 31) & ~7;   // of this lane's 8
-  const long long n_row_blocks = (n + rows - 1) / rows;
+  const long long row = static_cast<long long>(blockIdx.x) * rows + g;
+  const bool live = row < n;
 
-  for (long long rb = blockIdx.x; rb < n_row_blocks; rb += gridDim.x) {
-    const long long row = rb * rows + g;
-    const bool live = row < n;
-    const long long x0 = rb * rows * F;
-    const long long x_len = min(static_cast<long long>(n) * F - x0,
-                                static_cast<long long>(rows) * F);
-    __syncthreads();   // the staged ensemble, or the last rows' use of xs
-    for (long long i = threadIdx.x; i < x_len; i += blockDim.x) {
-      xs_all[i] = X[x0 + i];
+  const long long x0 = static_cast<long long>(blockIdx.x) * rows * F;
+  const long long x_len = min(static_cast<long long>(n) * F - x0,
+                              static_cast<long long>(rows) * F);
+  for (long long i = threadIdx.x; i < x_len; i += blockDim.x) {
+    xs_all[i] = X[x0 + i];
+  }
+  __syncthreads();
+  if (group == 1 && live) {   // one lane walks the whole row
+    if (chains == 1) {         // numpy starts the single chain from 0.0
+      sums[0] = chain_sum<D>(0.0, 0, T, 1, xs, feats, thr, leaves, F);
     }
-    __syncthreads();
-    if (group == 1 && live) {   // one lane walks the whole row
-      if (chains == 1) {         // numpy starts the single chain from 0.0
-        sums[0] = chain_sum<D, kStaged>(0.0, 0, T, 1, xs, fe, th, lv, F);
-      }
-      for (int b = 0; chains >= 8 && b < n_blocks; ++b) {
-        sums[b] = block_sum<D, kStaged>(__ldg(sched + 2 * b),
-                                        __ldg(sched + 2 * b + 1), xs, fe,
-                                        th, lv, F);
+    for (int b = 0; chains >= 8 && b < n_blocks; ++b) {
+      sums[b] = block_sum<D>(__ldg(sched + 2 * b), __ldg(sched + 2 * b + 1),
+                             xs, feats, thr, leaves, F);
+    }
+  }
+  for (int r = 0; group > 1 && r < rounds; ++r) {
+    const int c = lane + r * group;
+    const bool mine = live && c < chains;
+    double acc = 0.0;
+    double rem_leaf = 0.0;
+    int rem = 0;
+    if (mine) {
+      const int start = __ldg(sched + 2 * (c >> 3));
+      const int len = __ldg(sched + 2 * (c >> 3) + 1);
+      const int j = c & 7;
+      const int body = len & ~7;
+      // -0.0 is the additive identity: the chain equals its first term
+      acc = chain_sum<D>(-0.0, start + j, body >> 3, 8, xs, feats, thr,
+                         leaves, F);
+      rem = len - body;
+      if (j < rem) {
+        rem_leaf = tree_leaf<D>(start + body + j, xs, feats, thr, leaves, F);
       }
     }
-    for (int r = 0; group > 1 && r < rounds; ++r) {
-      const int c = lane + r * group;
-      const bool mine = live && c < chains;
-      double acc = 0.0;
-      double rem_leaf = 0.0;
-      int rem = 0;
-      if (mine) {
-        const int start = __ldg(sched + 2 * (c >> 3));
-        const int len = __ldg(sched + 2 * (c >> 3) + 1);
-        const int j = c & 7;
-        const int body = len & ~7;
-        // -0.0 is the additive identity: the chain equals its first term
-        acc = chain_sum<D, kStaged>(-0.0, start + j, body >> 3, 8, xs, fe,
-                                    th, lv, F);
-        rem = len - body;
-        if (j < rem) {
-          rem_leaf = tree_leaf<D, kStaged>(start + body + j, xs, fe, th, lv,
-                                           F);
-        }
-      }
-      // every lane of the launch shuffles: groups are 8-lane aligned
-      acc += __shfl_xor_sync(kFull, acc, 1);
-      acc += __shfl_xor_sync(kFull, acc, 2);
-      acc += __shfl_xor_sync(kFull, acc, 4);
+    // every lane of the launch shuffles: groups are 8-lane aligned
+    acc += __shfl_xor_sync(kFull, acc, 1);
+    acc += __shfl_xor_sync(kFull, acc, 2);
+    acc += __shfl_xor_sync(kFull, acc, 4);
 #pragma unroll
-      for (int i = 0; i < 7; ++i) {
-        const double v = __shfl_sync(kFull, rem_leaf, first_lane + i);
-        if (i < rem) acc += v;
-      }
-      if (mine && (c & 7) == 0) sums[c >> 3] = acc;
+    for (int i = 0; i < 7; ++i) {
+      const double v = __shfl_sync(kFull, rem_leaf, first_lane + i);
+      if (i < rem) acc += v;
     }
-    __syncthreads();
-    if (live && lane == 0) {
-      double total = 0.0;
-      if (slots > 0) {
-        for (int k = 0; k < n_pairs; ++k) {
-          const int* p = sched + 2 * (n_blocks + k);
-          sums[n_blocks + k] = sums[__ldg(p)] + sums[__ldg(p + 1)];
-        }
-        total = sums[slots - 1];
+    if (mine && (c & 7) == 0) sums[c >> 3] = acc;
+  }
+  __syncthreads();
+  if (live && lane == 0) {
+    double total = 0.0;
+    if (slots > 0) {
+      for (int k = 0; k < n_pairs; ++k) {
+        const int* p = sched + 2 * (n_blocks + k);
+        sums[n_blocks + k] = sums[__ldg(p)] + sums[__ldg(p + 1)];
       }
-      // numpy's reduction adds its pairwise sum to an initial 0.0
-      out[row] = base + (0.0 + total);
+      total = sums[slots - 1];
     }
+    // numpy's reduction adds its pairwise sum to an initial 0.0
+    out[row] = base + (0.0 + total);
   }
 }
 
@@ -308,40 +236,15 @@ cudaError_t launch_depth(const double* X, const int* feats,
                          const int* sched, int n_blocks, int n_pairs,
                          double base, double* out, int n, int F, int T,
                          int group, cudaStream_t stream) {
-  constexpr bool kStaged = GBDT_STAGE_ENSEMBLE != 0;
   const int step = group > 32 ? group : 32;
   const long long per_row = 8LL * (F + n_blocks + n_pairs);
-  const long long ens = kStaged ? ensemble_bytes(T, D) : 0;
-  const long long limit = kStaged ? kStagedSmemBytes : kSmemBytes;
   int threads = group > kThreads ? group : kThreads;
-  int sms = 0;
-  if (kStaged) {   // about n / SMs rows a block, at most 1024 threads
-    cudaError_t e = cudaDeviceGetAttribute(
-        &sms, cudaDevAttrMultiProcessorCount, 0);
-    if (e != cudaSuccess) return e;
-    const long long want = (static_cast<long long>(n) + sms - 1) / sms *
-                           group;
-    threads = static_cast<int>(
-        std::min(1024LL, (want + step - 1) / step * step));
-  }
-  const auto smem = [&](int t) { return ens + t / group * per_row; };
-  while (smem(threads) > limit && threads > step) threads -= step;
-  if (smem(threads) > limit) return cudaErrorInvalidValue;
-  const long long rows = threads / group;
-  long long blocks = (n + rows - 1) / rows;
-  if (kStaged) {
-    blocks = std::min(blocks, static_cast<long long>(sms));
-    if (smem(threads) > kSmemBytes) {
-      cudaError_t e = cudaFuncSetAttribute(
-          gbdt_predict_kernel<D, kStaged>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem(threads)));
-      if (e != cudaSuccess) return e;
-    }
-  }
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  gbdt_predict_kernel<D, kStaged>
-      <<<static_cast<unsigned>(blocks), threads,
+  const auto smem = [&](int t) { return t / group * per_row; };
+  while (smem(threads) > kSmemBytes && threads > step) threads -= step;
+  if (smem(threads) > kSmemBytes) return cudaErrorInvalidValue;
+  const int rows = threads / group;
+  gbdt_predict_kernel<D>
+      <<<(n + rows - 1) / rows, threads,
          static_cast<size_t>(smem(threads)), stream>>>(
           X, feats, thr, leaves, sched, n_blocks, n_pairs, base, out, n, F,
           T, group);

@@ -8,7 +8,8 @@ built with the port's other kernels into one library on first use
 A row's trees are summed on a group of lanes, one lane per chain of
 numpy's pairwise order (:func:`repro_torch.kernels.ref.lane_schedule`,
 cached per T on each device). :func:`group_width` picks the group from
-the chain count and the batch; any width gives the same bits.
+the chain count, the batch and the card's SM count; any width gives the
+same bits.
 
 :data:`launches` counts kernel launches: :func:`launch` adds one each time
 the kernel is launched, and nothing else touches it except a caller
@@ -24,15 +25,16 @@ import torch
 from .build import library
 from .ref import lane_schedule
 
-__all__ = ["MAX_DEPTH", "build", "group_width", "launch", "schedule"]
+__all__ = ["MAX_DEPTH", "build", "fill_lanes", "group_width", "launch",
+           "schedule"]
 
 MAX_DEPTH = 8
 #: The widest lane group a row gets; more chains than this take turns.
 MAX_GROUP = 64
-#: Lanes (rows x group) past which groups narrow toward 8: the card is
-#: full, and narrower groups share each tree's loads between more rows of
-#: a warp.
-FILL_LANES = 132 * 512
+#: Lanes (rows x group) per SM past which groups narrow toward 8: the card
+#: is full, and narrower groups share each tree's loads between more rows
+#: of a warp.
+FILL_LANES_PER_SM = 512
 #: Rows from which one lane walks a whole row: all 32 rows of a warp then
 #: read the same tree (on the H100 faster than 8 lanes at 65536 rows,
 #: slower at 16384; PERF.md).
@@ -62,15 +64,22 @@ def build() -> ctypes.CDLL:
     return lib
 
 
-def group_width(n: int, chains: int) -> int:
+@functools.cache
+def fill_lanes(device: torch.device) -> int:
+    """Lanes that fill ``device``: :data:`FILL_LANES_PER_SM` per SM."""
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count * FILL_LANES_PER_SM
+
+
+def group_width(n: int, chains: int, fill: int) -> int:
     """Lanes per row: one for a single chain or from
     :data:`ONE_LANE_ROWS` rows on, else the smallest power of two >= the
     chain count, at most :data:`MAX_GROUP`, halved toward 8 while ``n``
-    rows would take more than :data:`FILL_LANES` lanes."""
+    rows would take more than ``fill`` lanes (:func:`fill_lanes`)."""
     if chains <= 1 or n >= ONE_LANE_ROWS:
         return 1
     g = min(1 << (chains - 1).bit_length(), MAX_GROUP)
-    while g > 8 and n * g > FILL_LANES:
+    while g > 8 and n * g > fill:
         g //= 2
     return g
 
@@ -89,20 +98,16 @@ def schedule(T: int, device: torch.device) -> tuple:
 
 
 def launch(X: torch.Tensor, feats: torch.Tensor, thresholds: torch.Tensor,
-           leaves: torch.Tensor, base: float, out: torch.Tensor,
-           group: "int | None" = None) -> None:
+           leaves: torch.Tensor, base: float, out: torch.Tensor) -> None:
     """Launch the kernel on the current stream; the caller has validated
-    every argument (:func:`repro_torch.kernels.ops.gbdt_predict`).
-    ``group`` overrides :func:`group_width` (every width gives the same
-    bits; the card tests hold them to it). Raises if
+    every argument (:func:`repro_torch.kernels.ops.gbdt_predict`). Raises if
     the runtime refuses the launch."""
     global launches
     lib = build()
     n, F = X.shape
     T, depth = thresholds.shape
     sched, n_blocks, n_pairs, chains = schedule(T, X.device)
-    if group is None:
-        group = group_width(n, chains)
+    group = group_width(n, chains, fill_lanes(X.device))
     # the library's runtime launches into whichever card is current
     with torch.cuda.device(X.device):
         err = lib.gbdt_predict_f64(

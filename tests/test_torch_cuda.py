@@ -66,19 +66,23 @@ def test_kernel_equals_plain_version_bitwise(n, T, depth, F):
     assert torch.equal(got.cpu(), cpu)
 
 
-@pytest.mark.parametrize("n,T", [(3, 400), (70, 1000), (9, 130)])
-def test_every_lane_group_width_gives_the_same_bits(n, T):
-    """Chains keep their order whatever the group width (one lane walking
-    the row's blocks, 8 lanes taking turns through the chains, up to a
-    group per chain)."""
+@pytest.mark.parametrize("n,T,group", [
+    (32768, 400, 1), (16384, 400, 8), (4096, 400, 16), (768, 400, 32),
+    (33, 1000, 64), (9, 130, 16), (64, 80, 8),
+])
+def test_every_lane_group_width_gives_the_same_bits(n, T, group):
+    """Chains keep their order whatever the group width the wrapper picks
+    (one lane walking the row's blocks, 8 lanes taking turns through the
+    chains, up to a group per chain); the batch sizes reach each width on
+    an H100 SXM (132 SMs)."""
     dev = _card()
     X, feats, thr, leaves = _ensemble(3, n, T, 4, 23, dev)
+    chains = ref.lane_schedule(T).chains
+    assert gp.group_width(n, chains, gp.fill_lanes(X.device)) == group
+    got = ops.gbdt_predict(X, feats, thr, leaves, base=0.5)
     want = ref.gbdt_predict_ref(X, feats, thr, leaves, base=0.5)
-    for group in (1, 8, 16, 32, 64, 128):
-        out = torch.empty(n, dtype=torch.float64, device=dev)
-        gp.launch(X, feats, thr, leaves, 0.5, out, group=group)
-        torch.cuda.synchronize()
-        assert torch.equal(out, want), group
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_out_of_range_feature_poisons_the_row():

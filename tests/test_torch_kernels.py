@@ -144,7 +144,8 @@ def test_lane_schedule_chain_counts():
     (1, 128, 64),
 ])
 def test_group_width(n, chains, group):
-    assert gp.group_width(n, chains) == group
+    # the lanes that fill an H100 SXM: 132 SMs
+    assert gp.group_width(n, chains, 132 * gp.FILL_LANES_PER_SM) == group
 
 
 def test_wrapper_is_the_plain_version_on_cpu():
