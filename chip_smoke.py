@@ -16,8 +16,11 @@ card, in phases:
    golden-trace predictor's shape (64 rows, 80 trees of depth 3); and the
    card's launch floor, an empty kernel of the same library replayed from
    a CUDA graph as the kernel is;
-3. the 12 base golden traces (6 policies x seeds 0, 1) reproduced exactly
-   with ``device="cuda"``, through the kernel;
+3. the 17 golden traces reproduced exactly with ``device="cuda"``,
+   through the kernel: the 12 base ones (6 policies x seeds 0, 1) and the
+   five the beyond-paper layers pin (power cap, preemption fired and
+   declined, tenant shedding and tier rescue), built as
+   ``tests/test_golden.py`` builds them;
 4. the main path at full size: the default predictor (400 trees of depth 4
    per regressor), a CUDA ``PredictionService`` with ``prefetch_tables``,
    and the 100 000-job uniform stream on 8 devices (min-energy); then the
@@ -41,7 +44,18 @@ card, in phases:
    2 layers, cuda against cpu, logits within 1e-3; and at bf16 with 2
    layers, a prefill through the kernel against one through the plain
    attention (logits within 2**-4, the same next tokens);
-8. Falcon-Mamba-7B, the same way (without the bf16 attention check).
+8. Falcon-Mamba-7B, the same way (without the bf16 attention check);
+9. the beyond-paper scheduler layers at full size, on the card and on the
+   CPU, records equal field for field (provenance fields included): the
+   tiers scenario of ``benchmarks/bench_tenants.py`` (2500 jobs at 10x
+   overload on 2 v5p + 4 v5e + 2 v5lite, the default predictor) with
+   admission, a slack-weighted power cap, preemption and the online GBDT
+   corrector all attached; then ``benchmarks/bench_online.py``'s 1000-job
+   drifting stream with the RLS and with the GBDT corrector. Sheds,
+   preemptions and drift resets must all happen. The GBDT kernel is held
+   bit for bit to its plain version on the corrector's ensembles (30 trees
+   of depth 2 over 3 features) at 1, 24 and 64 rows, and timed there
+   beside host numpy.
 
 Ends with a JSON line of per-kernel numbers, the card line, and
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
@@ -111,6 +125,24 @@ SCAN_SWEEP = ((1, 16, 8, 4), (2, 64, 32, 16), (1, 40, 24, 8), (2, 33, 20, 8))
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
 SERVE_ATTN = (SERVE_BATCH, SERVE_PROMPT, 32, 8, 128)
 SERVE_SCAN = (SERVE_BATCH, SERVE_PROMPT, 8192, 16)
+#: the golden traces of the beyond-paper layers (tests/test_golden.py)
+LAYER_KEYS = ("min-energy|cap|0", "min-energy|preempt-fire|0",
+              "min-energy|preempt-decline|0", "min-energy|tenant-shed|0",
+              "min-energy|tenant-rescue|0")
+#: phase 9: benchmarks/bench_tenants.py's tiers scenario at full size, with
+#: a slack-weighted cap at the pool's idle floor plus CAP_FRAC of its
+#: sprint headroom (each class's power model at max clock, full load)
+TENANT_POOL = (("v5p", 2), ("v5e", 4), ("v5lite", 2))
+TENANT_JOBS, TENANT_OVERLOAD, TENANT_QUANTUM = 2500, 10.0, 0.25
+TENANT_LOOKAHEAD_S, CAP_FRAC = 30.0, 0.55
+#: ... and benchmarks/bench_online.py's drifting stream and detector tuning
+ONLINE_JOBS = 1000
+DRIFT_APPS = ("SYRK", "GEMM", "2MM")
+DRIFT_KW = dict(warmup=10, k=0.75, threshold=10.0, min_ref_std=0.05,
+                cooldown=5)
+#: the corrector's batches: a v5e or v5p ladder, a v5lite ladder, and
+#: the one-row innovation
+CORRECTOR_ROWS = (1, 24, 64)
 
 
 def _check(ok: bool, what: str) -> None:
@@ -250,12 +282,220 @@ def _device_breakdown(fn, top: int = 6) -> str:
 
 
 def _reset(counters) -> None:
-    """Every kernel's launch count to 0 (and per route, where a kernel has
-    routes), just before a path is driven."""
+    """Every kernel's launch count to 0 (and per route or per batch size,
+    where a kernel splits its count), just before a path is driven."""
     for mod in counters:
         mod.launches = 0
         for route in getattr(mod, "route_launches", {}):
             mod.route_launches[route] = 0
+        getattr(mod, "rows_launches", {}).clear()
+
+
+def _fields(rec) -> tuple:
+    """Every field of an ExecutionRecord, the ``compare=False`` provenance
+    fields included, with the clock as its (core, mem) scales."""
+    return tuple((f.name, (getattr(rec, f.name).s_core,
+                           getattr(rec, f.name).s_mem)
+                  if f.name == "clock" else getattr(rec, f.name))
+                 for f in dataclasses.fields(rec))
+
+
+def _layer_goldens(core, apps, tb, pred, feats, dev) -> dict:
+    """The five golden runs of the beyond-paper layers, built as
+    tests/test_golden.py builds them. Returns ``{key: (result, layer)}``
+    with the layer object that proves the scenario live."""
+    kw = dict(predictor=pred, app_features=feats, device=dev)
+    out = {}
+    jobs = core.make_workload(apps, tb, seed=0)
+    out[LAYER_KEYS[0]] = (core.run_schedule(
+        jobs, "min-energy", core.Testbed(seed=100), n_devices=2,
+        power_coordinator=core.PowerCapCoordinator(
+            120.0, grant_policy="slack-weighted", guard=0.2), **kw), None)
+    jobs = list(core.rescue_stress_workload(apps, tb, n_jobs=12, seed=0,
+                                            n_devices=1))
+    mgr = core.PreemptionManager()
+    out[LAYER_KEYS[1]] = (core.run_schedule(
+        jobs, "min-energy", core.Testbed(seed=100), preemption=mgr, **kw),
+        mgr)
+    jobs = [dataclasses.replace(j, checkpoint_quantum=0.5)
+            for j in core.make_workload(apps, tb, seed=0)]
+    mgr = core.PreemptionManager()
+    out[LAYER_KEYS[2]] = (core.run_schedule(
+        jobs, "min-energy", core.Testbed(seed=100), preemption=mgr, **kw),
+        mgr)
+    jobs = list(core.multi_tenant_workload(apps, tb, n_jobs=60, seed=0,
+                                           n_devices=2, overload=8.0))
+    adm = core.AdmissionController(lookahead_s=20.0, threshold=0.5)
+    out[LAYER_KEYS[3]] = (core.run_schedule(
+        jobs, "min-energy", core.Testbed(seed=100), n_devices=2,
+        admission=adm, **kw), adm)
+    by_name = {a.name: a for a in apps}
+    whale_app, short_app = by_name["lavaMD"], by_name["particlefilter_float"]
+    t_w = tb.true_time(whale_app, tb.dvfs.default_clock)
+    t_s = tb.true_time(short_app, tb.dvfs.default_clock)
+    whale = dataclasses.replace(
+        core.Job(app=whale_app, arrival=0.0, deadline=0.5 * t_w, job_id=0,
+                 checkpoint_quantum=0.2), tier=core.BEST_EFFORT_TIER)
+    s1 = dataclasses.replace(
+        core.Job(app=short_app, arrival=0.25 * t_w,
+                 deadline=0.25 * t_w + 1.7 * t_s, job_id=1),
+        tier=core.SLO_TIER)
+    s2 = dataclasses.replace(
+        core.Job(app=short_app, arrival=0.25 * t_w + 0.2,
+                 deadline=0.25 * t_w + 0.2 + 2.2 * t_s, job_id=2),
+        tier=core.SLO_TIER)
+    mgr = core.PreemptionManager()
+    out[LAYER_KEYS[4]] = (core.run_schedule(
+        [whale, s1, s2], "min-energy", core.Testbed(seed=100),
+        preemption=mgr, **kw), mgr)
+    return out
+
+
+def _tenant_run(core, apps, tb, pred, feats, dev):
+    """Phase 9's all-layers run: the tiers scenario with admission, the
+    capped coordinator, preemption and the GBDT corrector attached."""
+    pool = core.make_device_pool(*((core.DEVICE_CLASSES[n], k)
+                                   for n, k in TENANT_POOL))
+    idle = sum(c.idle_power() for c in pool)
+    sprint = sum(c.dvfs.power(c.dvfs.max_clock, 1.0, 1.0) for c in pool)
+    jobs = list(core.multi_tenant_workload(
+        apps, tb, n_jobs=TENANT_JOBS, seed=0, pool=pool,
+        overload=TENANT_OVERLOAD, quantum_frac=TENANT_QUANTUM))
+    svc = core.PredictionService(tb.dvfs, predictor=pred, app_features=feats,
+                                 testbed=tb, device=dev)
+    layers = dict(
+        adapter=core.OnlineAdapter(svc, corrector="gbdt"),
+        coord=core.PowerCapCoordinator(idle + CAP_FRAC * (sprint - idle),
+                                       grant_policy="slack-weighted"),
+        mgr=core.PreemptionManager(),
+        adm=core.AdmissionController(lookahead_s=TENANT_LOOKAHEAD_S))
+    res = core.run_schedule(
+        jobs, "min-energy", core.Testbed(seed=100), service=svc,
+        device_classes=pool, feedback=layers["adapter"],
+        power_coordinator=layers["coord"], preemption=layers["mgr"],
+        admission=layers["adm"], device=dev)
+    return res, layers
+
+
+def _online_run(core, apps, tb, pred, feats, dev, corrector):
+    """Phase 9's online run: bench_online's corrected run on the drifting
+    stream."""
+    svc = core.PredictionService(tb.dvfs, predictor=pred, app_features=feats,
+                                 testbed=tb, device=dev)
+    adapter = core.OnlineAdapter(svc, corrector=corrector,
+                                 drift=core.DriftConfig(**DRIFT_KW),
+                                 risk_scale=1.0, max_margin=0.2)
+    jobs = core.drifting_workload(apps, tb, n_jobs=ONLINE_JOBS, seed=0,
+                                  n_devices=1, drift_names=list(DRIFT_APPS))
+    policy = core.RiskAware(tb.dvfs, margin=0.02, margin_fn=adapter.margin)
+    res = core.run_schedule(jobs, policy, core.Testbed(seed=100),
+                            service=svc, feedback=adapter, device=dev)
+    return res, dict(adapter=adapter)
+
+
+def _layers(core, gp, ops, ref, counters, apps, tb, preds, feats, dev,
+            card) -> dict:
+    """Phase 9: the beyond-paper layers at full size, cuda against cpu,
+    then the GBDT kernel on the corrector's ensembles. Returns the K1
+    numbers of this path."""
+    print(f"== phase 9: the beyond-paper layers at full size; card {card}")
+    runs = {"tenants": lambda d, p: _tenant_run(core, apps, tb, p, feats,
+                                                d),
+            "online-rls": lambda d, p: _online_run(core, apps, tb, p, feats,
+                                                   d, "rls"),
+            "online-gbdt": lambda d, p: _online_run(core, apps, tb, p, feats,
+                                                    d, "gbdt")}
+    launches, by_rows, fitted = {}, {}, None
+    for name, run in runs.items():
+        out = {}
+        for label, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            _reset(counters)                         # this slice's path
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, layers = run(d, preds[label])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if label == "cuda":
+                launches[name] = gp.launches
+                by_rows[name] = dict(sorted(gp.rows_launches.items()))
+                corr = layers["adapter"].corrector
+                if fitted is None and getattr(corr, "_fits", None):
+                    fitted = next(iter(corr._fits.values()))[1]
+            out[label] = res, layers
+            ad = layers["adapter"]
+            n = len(res.records)
+            extra = ""
+            if name == "tenants":
+                stats = [layers[k].stats.summary()
+                         for k in ("adm", "coord", "mgr")]
+                extra = (f"; shed {res.shed_count}, preemptions "
+                         f"{res.preemptions}, misses by tier "
+                         f"{res.misses_by_tier()}; " + "; ".join(stats))
+            n_jobs = TENANT_JOBS if name == "tenants" else ONLINE_JOBS
+            print(f"   {name} [{label}]: {n_jobs} jobs, {n} records in "
+                  f"{wall:.3f} s = "
+                  f"{n / wall:.1f} records/s (host clock); total_energy "
+                  f"{float(res.total_energy)!r} J; misses {res.misses}; drift "
+                  f"resets {ad.n_drifts} ({ad.summary()}){extra}",
+                  flush=True)
+        (rc, lc), (rh, lh) = out["cuda"], out["cpu"]
+        _check(len(rc.records) == len(rh.records)
+               and all(_fields(a) == _fields(b)
+                       for a, b in zip(rc.records, rh.records))
+               and [j.job_id for j in rc.shed] == [j.job_id
+                                                    for j in rh.shed],
+               f"{name}: cuda vs cpu records, field for field")
+        _check(launches[name] > 0, f"{name}: the kernel never launched")
+        _check(lc["adapter"].n_drifts > 0 if name != "tenants"
+               else rc.shed_count > 0 and rc.preemptions > 0,
+               f"{name}: the layers fired")
+        print(f"   {name}: cuda == cpu field for field; kernel launches "
+              f"{launches[name]}, by batch rows {by_rows[name]}",
+              flush=True)
+
+    # the kernel on the corrector's ensembles, against its plain version
+    _check(fitted is not None, "the GBDT corrector fitted no model")
+    tabs = fitted.device_tables()
+    T, depth = tabs[0].shape
+    host_tabs = tuple(a.cpu().numpy() for a in tabs)
+    clocks = core.V5E_DVFS.clock_list()
+    Z = np.stack([core.online.clock_basis(c) for c in clocks])
+    print(f"   the corrector's time ensemble ({T} trees of depth {depth} "
+          f"over {Z.shape[1]} features), ms per call: wrapper "
+          f"(GBDTModel.predict: copy in, launch, copy back; host clock), "
+          f"host numpy, plain on the card and the kernel alone (CUDA "
+          f"graph replay); the kernel is bitwise equal to plain")
+    timing, worst = {}, 0.0
+    for n in CORRECTOR_ROWS:
+        Zn = Z[:n]
+        Zt = torch.from_numpy(Zn).to(dev)
+        got = ops.gbdt_predict(Zt, *tabs, fitted.base)
+        want = ref.gbdt_predict_ref(Zt, *tabs, fitted.base)
+        torch.cuda.synchronize()
+        _check(bool(torch.equal(got, want)),
+               f"corrector ensemble, {n} rows: kernel vs plain")
+        worst = max(worst, float((got - want).abs().max()))
+        out_t = torch.empty(n, dtype=torch.float64, device=dev)
+        w_ms = _time_host(lambda: fitted.predict(Zn), 200)
+        h_ms = _time_host(lambda: ref.gbdt_predict_numpy(Zn, *host_tabs,
+                                                         fitted.base), 200)
+        p_ms = _time_cuda(lambda: ref.gbdt_predict_ref(Zt, *tabs,
+                                                       fitted.base), 20)
+        d_ms = _time_graph(lambda: gp.launch(Zt, *tabs, fitted.base, out_t),
+                           50)
+        b_ms, b_by = _bound_ms(n, T, depth, Z.shape[1])
+        timing[n] = dict(wrapper_ms=w_ms, numpy_ms=h_ms, plain_ms=p_ms,
+                         device_ms=d_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"   {n:3d} rows: wrapper {w_ms:.6f}  numpy {h_ms:.6f}  "
+              f"plain {p_ms:.6f}  kernel {d_ms:.6f}  bound {b_ms:.9f} "
+              f"({b_by})")
+    ones = sum(r.get(1, 0) for r in by_rows.values())
+    print(f"   1-row launches in phase 9's cuda runs: {ones}; at the "
+          f"wrapper's {timing[1]['wrapper_ms']:.6f} ms that is "
+          f"{ones * timing[1]['wrapper_ms'] / 1e3:.3f} s, host numpy would "
+          f"take {ones * timing[1]['numpy_ms'] / 1e3:.3f} s", flush=True)
+    return dict(launches=launches, by_rows=by_rows, timing=timing,
+                max_abs_err=worst, shape=(T, depth, Z.shape[1]))
 
 
 def _close(got: torch.Tensor, want: torch.Tensor, tol, what: str) -> float:
@@ -636,7 +876,8 @@ def main() -> int:
     for n, T, depth, F in ((17, 9, 2, 5), (64, 64, 4, 23), (8, 130, 6, 8),
                            (300, 50, 8, 23), (1000, 1, 8, 40),
                            (64, 80, 3, 23), (33, 260, 5, 23),
-                           (4097, 400, 4, 23), (33, 1000, 8, 23)):
+                           (4097, 400, 4, 23), (33, 1000, 8, 23),
+                           (1, 30, 2, 3), (24, 30, 2, 3), (64, 30, 2, 3)):
         args = _random_ensemble(rng, n, T, depth, F, dev)
         got = ops.gbdt_predict(*args, base=1.5)
         want = ref.gbdt_predict_ref(*args, base=1.5)
@@ -758,10 +999,23 @@ def main() -> int:
                 app_features=feats, device=dev)
             _check(legacy.records == r.records, f"legacy == run {key}")
             matched += 1
-    print(f"== phase 3: {matched}/12 base golden digests reproduced on "
-          f"{dev}; run_schedule == legacy_run_schedule; kernel launches "
+    import repro_torch.core as core
+    for key, (r, layer) in _layer_goldens(core, apps, tb, gpred, feats,
+                                          dev).items():
+        _check(_digest(r.records) == golden[key]["digest"],
+               f"golden digest {key}")
+        live = {LAYER_KEYS[1]: lambda: r.preemptions > 0,
+                LAYER_KEYS[2]: lambda: layer.stats.boundaries > 0
+                and r.preemptions == 0,
+                LAYER_KEYS[3]: lambda: r.shed_count > 0,
+                LAYER_KEYS[4]: lambda: layer.stats.tier_rescues > 0}
+        _check(live.get(key, lambda: True)(), f"{key} scenario is live")
+        matched += 1
+    print(f"== phase 3: {matched}/17 golden digests reproduced on {dev} "
+          f"(12 base, {len(LAYER_KEYS)} of the beyond-paper layers); "
+          f"run_schedule == legacy_run_schedule; kernel launches "
           f"{gp.launches}", flush=True)
-    _check(matched == 12 and gp.launches > 0, "golden phase launches")
+    _check(matched == 17 and gp.launches > 0, "golden phase launches")
 
     # -- phase 4: the main path at full size -------------------------------
     jobs = list(stream_workload(apps, tb, n_jobs=N_JOBS, seed=1,
@@ -769,9 +1023,10 @@ def main() -> int:
     results = {}
     services = {}
     main_launches = None
-    for label, p in (("cuda", pred),
-                     ("cpu", predictor_from_arrays(predictor_arrays(pred),
-                                                   device="cpu"))):
+    preds = {"cuda": pred,
+             "cpu": predictor_from_arrays(predictor_arrays(pred),
+                                          device="cpu")}
+    for label, p in preds.items():
         _reset(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -809,6 +1064,8 @@ def main() -> int:
     served = {"flash_attention": _serve("mistral-nemo-12b", fa, counters,
                                         dev, 7),
               "mamba_scan": _serve("falcon-mamba-7b", ms, counters, dev, 8)}
+    layers = _layers(core, gp, ops, ref, counters, apps, tb, preds, feats,
+                     dev, card)
 
     t768 = timing[768]
     rows = [{
@@ -825,6 +1082,12 @@ def main() -> int:
         "library_ms": None,
         "floor_ms": floor_ms,
         "golden_shape_ms": g_ms,
+        # this slice's path (phase 9) and the corrector's shapes
+        "launches_layers": layers["launches"],
+        "launches_layers_by_rows": layers["by_rows"],
+        "corrector_max_abs_err": layers["max_abs_err"],
+        "corrector_shape_trees_depth_features": layers["shape"],
+        "corrector_ms_by_rows": layers["timing"],
     }]
     for name, line, err in (("flash_attention", 116, attn_err),
                             ("mamba_scan", 72, scan_err)):

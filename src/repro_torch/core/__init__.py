@@ -13,8 +13,13 @@ from .features import (ALL_INPUT_NAMES, CATEGORICAL_FEATURES, FEATURE_NAMES,
 from .predictor import (EnergyTimePredictor, PredictorConfig, loocv_rmse,
                         normalized_rmse, split_rmse)
 from .correlate import CorrelationIndex
-from .workload import (DEFAULT_TIER, Job, TierSpec, edf_key,
-                       make_device_pool, make_workload, stream_workload)
+from .workload import (BATCH_TIER, BEST_EFFORT_TIER, DEFAULT_TIER, Job,
+                       SLO_TIER, TIERS, TierSpec, cap_stress_workload,
+                       drift_profile, drifting_workload, edf_key,
+                       heterogeneous_workload, make_device_pool,
+                       make_workload, multi_tenant_workload,
+                       rescue_stress_workload, stream_workload)
+from .admission import AdmissionController, AdmissionStats
 from .prediction_service import (ClockTable, PredictionService, ServiceStats,
                                  StackedTable, UnknownAppError)
 from .batch_decide import DecisionCore, DecisionStats
@@ -24,6 +29,12 @@ from .policies import (BudgetManager, DeviceCandidate, Policy,
 from .engine import EngineHooks, EventEngine
 from .scheduler import (POLICIES, ScheduleResult, legacy_run_schedule,
                         run_schedule)
+from .online import (DriftConfig, DriftDetector, GBDTCorrector, Observation,
+                     ObservationStore, OnlineAdapter, RLSCorrector)
+from .powercap import (GRANT_POLICIES, CoordinatorStats, PowerCapCoordinator,
+                       PowerSegment, PowerTelemetry)
+from .preemption import (PreemptionConfig, PreemptionManager,
+                         PreemptionStats)
 
 __all__ = [
     "ClockPair", "DVFSConfig", "V5E_DVFS",
@@ -35,8 +46,13 @@ __all__ = [
     "EnergyTimePredictor", "PredictorConfig", "loocv_rmse", "normalized_rmse",
     "split_rmse",
     "CorrelationIndex",
-    "TierSpec", "DEFAULT_TIER", "Job", "edf_key", "make_workload",
-    "stream_workload", "make_device_pool",
+    "Job", "make_workload", "stream_workload", "make_device_pool",
+    "drifting_workload", "drift_profile", "heterogeneous_workload",
+    "cap_stress_workload", "rescue_stress_workload",
+    "multi_tenant_workload",
+    "TierSpec", "SLO_TIER", "BATCH_TIER", "BEST_EFFORT_TIER", "DEFAULT_TIER",
+    "TIERS", "edf_key",
+    "AdmissionController", "AdmissionStats",
     "ClockTable", "PredictionService", "ServiceStats", "StackedTable",
     "UnknownAppError",
     "DecisionCore", "DecisionStats",
@@ -44,4 +60,9 @@ __all__ = [
     "RiskAware", "VirtualPacingBudget", "resolve_policy",
     "EngineHooks", "EventEngine",
     "POLICIES", "ScheduleResult", "run_schedule", "legacy_run_schedule",
+    "Observation", "ObservationStore", "RLSCorrector", "GBDTCorrector",
+    "DriftConfig", "DriftDetector", "OnlineAdapter",
+    "GRANT_POLICIES", "CoordinatorStats", "PowerCapCoordinator",
+    "PowerSegment", "PowerTelemetry",
+    "PreemptionConfig", "PreemptionManager", "PreemptionStats",
 ]

@@ -50,17 +50,25 @@ classless decision, which is the refactor's safety rail; new policies get
 class-awareness for free and override ``class_score``/``select_device_clock``
 only for custom placement logic.
 
-The reference's power-cap filter (``select_capped``/``sprint_clock``),
-preemptive-rescue hooks and budget-manager rollback arrive with the layers
-that use them (ROADMAP §1.8).
+**Power-capped pools.** When the engine runs under a
+:class:`~repro_torch.core.powercap.PowerCapCoordinator`, each decision
+carries a per-device power grant: ``select_capped`` filters the clock
+ladder to clocks whose predicted draw (inflated by the coordinator's
+``guard``) fits the grant and runs the normal selection on the filtered
+ladder — feasible-first among fitting clocks — reporting the watts a
+deadline-rescue escalation would need when the grant alone blocks a
+feasible clock. ``sprint_clock`` is the cap-aware stand-in for the sprint
+fallback. A ``None``/infinite grant short-circuits to the capless path
+bit-identically.
 
 Invariants: policies are stateless between jobs (all cross-job state lives
 in budget managers or the prediction service); they never call the
 predictor directly — the ``table`` argument is their only view of
 predictions, which is what lets the online correction layer transparently
 upgrade every predictive policy at once. :class:`RiskAware` additionally
-accepts a per-app ``margin_fn`` so its deadline insurance can scale with
-*observed* residual variance instead of a fixed guess.
+accepts a per-app ``margin_fn`` (e.g. ``OnlineAdapter.margin``) so its
+deadline insurance scales with *observed* residual variance instead of a
+fixed guess.
 """
 from __future__ import annotations
 
@@ -114,11 +122,20 @@ class DeviceCandidate:
     """One placement option in a joint (device, clock) decision: a device
     class with at least one device free at the job's start time, its time
     budget there (identical across candidates — all are free by the start),
-    and the class's prediction table (None for table-free policies)."""
+    and the class's prediction table (None for table-free policies).
+
+    On a power-capped pool the engine additionally attaches the
+    coordinator's offered grant (``power_cap``, total device watts) and
+    the ``guard`` inflation factor; the joint decision then filters each
+    candidate's ladder to clocks fitting its grant
+    (:meth:`Policy.select_capped`). ``power_cap=None`` (or ``inf``) is the
+    capless path, bit-identical to pre-cap behavior."""
 
     device_class: DeviceClass
     budget: float
     table: Optional[ClockTable]
+    power_cap: Optional[float] = None
+    guard: float = 0.0
 
     @property
     def dvfs(self) -> DVFSConfig:
@@ -168,6 +185,147 @@ class Policy:
         policies override to read the *class's* default/max clock."""
         return self.select_clock(job, budget, table)
 
+    # -- power-capped pools --------------------------------------------- #
+    def model_power(self, clock: ClockPair,
+                    dvfs: Optional[DVFSConfig] = None) -> float:
+        """Upper-envelope draw for a clock with no prediction available
+        (table-free policies): the class power model at full utilization.
+        True power is gated by utilization ≤ 1, so this bounds the
+        utilization terms; the cap filter's ``guard`` absorbs the
+        simulator's wiggle/noise on top."""
+        d = dvfs or self.dvfs
+        return d.power(clock, 1.0, 1.0)
+
+    def _fastest_fitting(self, d: DVFSConfig, grant: float,
+                         guard: float) -> Optional[ClockPair]:
+        """Fastest ladder clock whose model-envelope draw (inflated by
+        ``guard``) fits ``grant``; None when nothing fits. The single
+        fitting rule shared by the table-free branches of
+        :meth:`select_capped` and :meth:`sprint_clock`."""
+        fitting = [c for c in d.clock_list()
+                   if self.model_power(c, d) * (1 + guard) <= grant + 1e-12]
+        if not fitting:
+            return None
+        return max(fitting, key=lambda c: (c.s_core, c.s_mem))
+
+    def _cheapest_clock(self, d: DVFSConfig) -> ClockPair:
+        """Least-overdraw ladder clock by model envelope."""
+        return min(d.clock_list(), key=lambda c: self.model_power(c, d))
+
+    def select_capped(
+        self, job: Job, budget: float, table: Optional[ClockTable],
+        dvfs: Optional[DVFSConfig] = None,
+        grant: Optional[float] = None, guard: float = 0.0,
+    ) -> tuple[ClockSelection, Optional[float]]:
+        """Cap-aware per-class choice: filter the ladder to clocks whose
+        predicted power (inflated by ``guard``) fits the ``grant``, then
+        run the normal :meth:`select_for_class` on the filtered ladder —
+        feasible-first among fitting clocks, exactly the capless ranking
+        restricted to the grant.
+
+        Returns ``(selection, needed_w)``. ``needed_w`` is non-None when
+        the grant is the *only* thing blocking a deadline-feasible clock:
+        the total watts a deadline-rescue escalation would need to
+        deliver. With ``grant`` None/∞ this is exactly
+        ``(select_for_class(...), None)`` — the cap=∞ identity lever."""
+        if grant is None or not np.isfinite(grant):
+            return self.select_for_class(job, budget, table, dvfs=dvfs), None
+        d = dvfs or self.dvfs
+        lim = grant + 1e-12
+        if table is None:
+            sel = self.select_for_class(job, budget, table, dvfs=dvfs)
+            if sel.clock is None:
+                return sel, None
+            if self.model_power(sel.clock, d) * (1 + guard) <= lim:
+                return sel, None
+            # the fixed clock overdraws the grant: fall back to the
+            # fastest ladder clock that fits
+            best = self._fastest_fitting(d, grant, guard)
+            if best is not None:
+                return ClockSelection(best), None
+            # nothing fits at all: run least-overdraw, ask for a rescue
+            # sized to the policy's own fixed clock
+            return (ClockSelection(self._cheapest_clock(d)),
+                    self.model_power(sel.clock, d) * (1 + guard))
+        fit = np.asarray(table.P) * (1 + guard) <= lim
+        if fit.all():
+            return self.select_for_class(job, budget, table, dvfs=dvfs), None
+        if not fit.any():
+            # grant below even the cheapest clock: escalation target is
+            # the uncapped choice when feasible, else the cheapest clock
+            sel_unc = self.select_for_class(job, budget, table, dvfs=dvfs)
+            needed = (sel_unc.power if sel_unc.feasible
+                      and sel_unc.power is not None
+                      else float(np.min(table.P)))
+            return ClockSelection(None), float(needed) * (1 + guard)
+        sub = ClockTable(
+            clocks=tuple(c for c, m in zip(table.clocks, fit) if m),
+            P=table.P[fit], T=table.T[fit], source=table.source)
+        sel = self.select_for_class(job, budget, sub, dvfs=dvfs)
+        if sel.feasible:
+            return sel, None
+        sel_unc = self.select_for_class(job, budget, table, dvfs=dvfs)
+        if sel_unc.feasible:
+            needed = (sel_unc.power if sel_unc.power is not None
+                      else float(np.min(table.P)))
+            return sel, float(needed) * (1 + guard)
+        return sel, None
+
+    def sprint_clock(
+        self, table: Optional[ClockTable],
+        dvfs: Optional[DVFSConfig] = None,
+        grant: Optional[float] = None, guard: float = 0.0,
+    ) -> ClockPair:
+        """Cap-aware stand-in for the engine's sprint-at-max fallback when
+        no clock is deadline-feasible: the fastest clock *fitting the
+        grant* (min predicted time; highest ladder step for table-free
+        policies), degrading to the least-overdraw clock when nothing
+        fits — the miss burns as fast as the grant allows, and the engine
+        still never drops work."""
+        d = dvfs or self.dvfs
+        if grant is None or not np.isfinite(grant):
+            return d.max_clock
+        lim = grant + 1e-12
+        if table is not None and len(table):
+            fit = np.asarray(table.P) * (1 + guard) <= lim
+            if fit.any():
+                T = np.where(fit, table.T, np.inf)
+                return table.clocks[int(np.argmin(T))]
+            return table.clocks[int(np.argmin(table.P))]
+        best = self._fastest_fitting(d, grant, guard)
+        return best if best is not None else self._cheapest_clock(d)
+
+    # -- preemptive rescue ---------------------------------------------- #
+    def rescue_trigger(self, now: float, deadline: float,
+                       remaining_pred_s: float,
+                       margin: float = 0.0) -> bool:
+        """The rescue predicate: is the committed plan predicted to miss?
+
+        True when ``now + remaining x (1 + margin)`` overshoots the
+        deadline — the signal the :class:`~repro_torch.core.preemption.
+        PreemptionManager` evaluates at every segment boundary, fed with
+        the *corrected* (or truth) table's remaining-time estimate, and
+        the same test that decides whether a queued job is stranded
+        behind the running ones. ``margin`` absorbs prediction noise so a
+        healthy schedule declines instead of thrashing."""
+        return now + remaining_pred_s * (1.0 + margin) > deadline + 1e-9
+
+    def select_resume(self, job: Job, budget: float,
+                      table: Optional[ClockTable], work_frac: float,
+                      overhead_s: float = 0.0,
+                      dvfs: Optional[DVFSConfig] = None) -> ClockSelection:
+        """Clock choice for a resumable remnant: the normal per-class
+        selection, run on :meth:`ClockTable.remnant` — the same lens the
+        engine threads through the joint placement decision and the cap
+        filter (:meth:`~repro_torch.core.preemption.PreemptionManager.
+        remnant_view` delegates to the very same method), so a resume
+        re-scores (class, clock) on what is actually left — mid-job
+        re-scaling and cross-class migration fall out for free.
+        Table-free policies resume at their fixed clock."""
+        if table is not None:
+            table = table.remnant(work_frac, overhead_s)
+        return self.select_for_class(job, budget, table, dvfs=dvfs)
+
     def class_score(self, job: Job, cand: DeviceCandidate,
                     sel: ClockSelection) -> tuple:
         """Totally-ordered score for one candidate (lower is better).
@@ -195,11 +353,23 @@ class Policy:
         index and its clock selection. Strict ``<`` comparison keeps the
         first (earliest-free, lowest-device-index) candidate on score ties,
         so a single-candidate pool reduces exactly to
-        :meth:`select_for_class`."""
+        :meth:`select_for_class`.
+
+        On power-capped pools the engine re-derives the chosen candidate's
+        selection through :meth:`select_capped` to recover the
+        deadline-rescue escalation target this method discards — custom
+        overrides should therefore keep their per-class choice consistent
+        with :meth:`select_for_class` (as the random-placement ablation
+        does), or the re-derivation may replace it under a finite cap."""
         best_i, best_sel, best_score = 0, None, None
         for i, cand in enumerate(candidates):
-            sel = self.select_for_class(job, cand.budget, cand.table,
-                                        dvfs=cand.dvfs)
+            if cand.power_cap is None:
+                sel = self.select_for_class(job, cand.budget, cand.table,
+                                            dvfs=cand.dvfs)
+            else:
+                sel, _ = self.select_capped(
+                    job, cand.budget, cand.table, dvfs=cand.dvfs,
+                    grant=cand.power_cap, guard=cand.guard)
             if best_sel is None:
                 best_i, best_sel, best_score = i, sel, self.class_score(
                     job, cand, sel)
@@ -214,10 +384,10 @@ class Policy:
                      stacked) -> Optional[tuple[int, ClockSelection]]:
         """Vectorized reformulation of the :meth:`select_for_class` →
         :meth:`class_score` → strict-``<`` joint decision over a
-        :class:`~repro_torch.core.prediction_service.StackedTable` of
-        candidate rows (earliest-free first, all sharing one ``budget``): one
-        fused feasible-mask → predicted-energy argmin over the (candidates
-        × padded clocks) block instead of a per-candidate Python loop.
+        :class:`~repro_torch.core.prediction_service.StackedTable` of candidate
+        rows (earliest-free first, all sharing one ``budget``): one fused
+        feasible-mask → predicted-energy argmin over the (candidates ×
+        padded clocks) block instead of a per-candidate Python loop.
 
         Tie-breaks are the scalar path's, exactly: row-wise ``np.argmin``
         keeps the lowest ladder index among equal-energy feasible clocks
@@ -332,9 +502,10 @@ class RiskAware(MinEnergy):
     against predictor underestimates (deadline risk).
 
     ``margin_fn`` (optional) adds a *per-app* margin on top of the static
-    one, so the insurance can track each app's observed residual variance:
-    tight for apps predicted well, generous for noisy or recently-drifted
-    ones."""
+    one; wire it to :meth:`repro_torch.core.online.OnlineAdapter.margin`
+    and the insurance tracks each app's observed residual variance: tight
+    for apps the corrector predicts well, generous for noisy or
+    recently-drifted ones."""
 
     name = "risk-aware"
 
@@ -412,6 +583,23 @@ class BudgetManager:
         ``start``."""
         return budget
 
+    # -- decision rollback (power-capped engine only) ------------------- #
+    def snapshot(self):
+        """Opaque state token taken *before* ``on_pop``/``apply`` of a
+        decision that might be rolled back — the power-capped engine defers
+        a dispatch (job back to the queue, device waits for a grant
+        release) when not even the cheapest clock fits the cluster's
+        remaining headroom, and the manager must forget that decision.
+
+        Contract: between :meth:`snapshot` and a matching :meth:`restore`
+        the engine performs exactly one ``on_pop`` + one ``apply`` — an
+        implementation may therefore record an O(1) undo token instead of
+        copying state. Default: stateless per decision, nothing to save."""
+        return None
+
+    def restore(self, state) -> None:
+        """Undo every mutation since the matching :meth:`snapshot`."""
+
 
 class QueueAwareBudget(BudgetManager):
     """Cap job i's budget so queued jobs can still sprint to their deadlines:
@@ -432,6 +620,7 @@ class QueueAwareBudget(BudgetManager):
         # admitted more than once in synthetic/replayed workloads)
         self._keys_of: dict[int, list[tuple[float, int]]] = {}
         self._seq = 0
+        self._last_pop = None     # O(1) undo token for capped rollback
 
     def on_admit(self, job):
         key = (job.deadline, self._seq)
@@ -440,6 +629,7 @@ class QueueAwareBudget(BudgetManager):
         bisect.insort(self._entries, (*key, self.t_min(job)))
 
     def on_pop(self, job):
+        self._last_pop = None
         keys = self._keys_of.get(id(job))
         if not keys:
             return
@@ -447,8 +637,25 @@ class QueueAwareBudget(BudgetManager):
         if not keys:
             del self._keys_of[id(job)]
         i = bisect.bisect_left(self._entries, key)
+        entry = None
         if i < len(self._entries) and self._entries[i][:2] == key:
+            entry = self._entries[i]
             del self._entries[i]
+        self._last_pop = (id(job), key, entry)
+
+    def snapshot(self):
+        # O(1): on_pop records the undo token (one removal per decision —
+        # the BudgetManager.snapshot contract); nothing to copy here
+        return "undo-last-pop"
+
+    def restore(self, state):
+        if self._last_pop is None:
+            return
+        jid, key, entry = self._last_pop
+        self._keys_of.setdefault(jid, []).insert(0, key)
+        if entry is not None:
+            bisect.insort(self._entries, entry)
+        self._last_pop = None
 
     def apply(self, job, start, budget):
         cum = 0.0
@@ -479,3 +686,9 @@ class VirtualPacingBudget(BudgetManager):
         pace = (vdc_i - start) + self.slack_share * max(
             0.0, job.deadline - vdc_i)
         return min(budget, max(pace, t_dc_i))
+
+    def snapshot(self):
+        return self._vdc
+
+    def restore(self, state):
+        self._vdc = state

@@ -17,6 +17,13 @@ decision from cache:
 * :meth:`truth_table` / :meth:`true_t_min` / :meth:`true_t_dc` — the
   ground-truth analogues for the oracle policy (memoized testbed sweeps).
 
+**Online correction layer.** An attached corrector (see
+:mod:`repro_torch.core.online`) multiplies measurement-feedback scale
+factors onto the frozen base table. The base cache is never touched by
+feedback; the corrected view lives in a separate per-app cache with an
+explicit :meth:`invalidate` API the feedback loop calls when corrections
+change.
+
 **The device.** The service runs on its ``device`` (default ``"cuda"``),
 which must be the predictor's. On a card, *every* GBDT batch — a stacked
 prefetch, a single ladder, a single-row point prediction — goes through the
@@ -32,22 +39,30 @@ Invariants:
 * **Cache-key contract.** Base tables are keyed by the *resolved profile*
   (``("own", name)`` or ``("corr", correlated_name)`` — see
   :meth:`resolve`) **plus the device-class key**, so correlated apps share
-  one build per class. Every cached quantity is a pure function of
-  ``(predictor, app profile, DVFS config)`` and never invalidates: a
-  service may be reused across runs indefinitely.
+  one build per class. Every cached base quantity (tables, ``t_min``/
+  ``t_dc`` points, truth sweeps) is a pure function of ``(predictor, app
+  profile, DVFS config)`` and never invalidates: a service may be reused
+  across runs indefinitely.
 * **Device-class keying.** Every query takes an optional
   :class:`~repro_torch.core.dvfs.DeviceClass`; ``None`` — or any class
   whose dvfs equals the service's own with no per-class features —
   normalizes to the same key (:meth:`register_class`), so uniform pools of
   the baseline class hit the very same cache entries as the classless path.
+* **Corrected tables are keyed by (app name, class key)** (corrections are
+  per-(app, class) even when base tables are shared via correlation) and
+  invalidate only through :meth:`invalidate` — which drops the app across
+  every class; the next :meth:`table` call re-applies the corrector's
+  *current* correction to the cached base (no predictor re-run).
+* **Frozen-path identity.** With no corrector attached — or an attached
+  corrector holding zero observations (its scale is exactly ``exp(0)``) —
+  :meth:`table` output is bit-identical to the uncorrected service.
 * **Rowwise identity.** The GBDT kernel and its plain version sum each row
   independently in a fixed tree order, so a table sliced out of a stacked
   prefetch is bit-identical to the same table built alone.
 
-The online-correction and cold-start tiers of the reference attach through
-:meth:`attach_corrector` / :meth:`attach_synthesizer`; both raise
-:class:`NotImplementedError` until those layers are ported (ROADMAP §1.7,
-§1.9).
+The reference's cold-start tier attaches through
+:meth:`attach_synthesizer`, which raises :class:`NotImplementedError`
+until that layer is ported (ROADMAP §1.9).
 """
 from __future__ import annotations
 
@@ -99,10 +114,24 @@ class ClockTable:
     clocks: tuple[ClockPair, ...]
     P: np.ndarray                 # predicted/true power (W) per clock
     T: np.ndarray                 # predicted/true time (s) per clock
-    source: str = "predicted"     # "predicted"|"truth"
+    source: str = "predicted"     # "predicted"|"truth"|"corrected"
 
     def __len__(self) -> int:
         return len(self.clocks)
+
+    def remnant(self, work_frac: float,
+                overhead_s: float = 0.0) -> "ClockTable":
+        """The table re-expressed for a resumable remnant covering
+        ``work_frac`` of the job's work: ``T' = work_frac * T +
+        overhead_s``, power per clock unchanged (a remnant draws what
+        the app draws). The single definition of the remnant lens —
+        :meth:`~repro_torch.core.preemption.PreemptionManager.remnant_view`
+        and :meth:`~repro_torch.core.policies.Policy.select_resume` both
+        delegate here, so remnant pricing can never drift between the
+        engine's resume path and the policy API."""
+        return ClockTable(clocks=self.clocks, P=self.P,
+                          T=self.T * work_frac + overhead_s,
+                          source=self.source)
 
     @property
     def E(self) -> np.ndarray:
@@ -156,6 +185,9 @@ class ServiceStats:
     point_predictions: int = 0    # cached single-row t_min / t_dc predicts
     rows_predicted: int = 0       # total predictor rows evaluated
     kernel_batches: int = 0       # GBDT batches run by the CUDA kernel
+    corrected_builds: int = 0     # corrected-view (re)applications
+    corrected_hits: int = 0       # decisions served from the corrected cache
+    invalidations: int = 0        # targeted corrected-cache invalidations
     stacked_builds: int = 0       # stacked (candidate x clock) view builds
     stacked_hits: int = 0         # joint decisions served from stacked cache
     prefetched_tables: int = 0    # tables built via batched prefetch
@@ -163,7 +195,10 @@ class ServiceStats:
     def summary(self) -> str:
         return (f"table_builds={self.table_builds} hits={self.table_hits} "
                 f"truth_builds={self.truth_builds} "
-                f"rows={self.rows_predicted} kernel={self.kernel_batches}")
+                f"rows={self.rows_predicted} kernel={self.kernel_batches} "
+                f"corrected={self.corrected_builds}"
+                f"/{self.corrected_hits}hit "
+                f"invalidations={self.invalidations}")
 
 
 class PredictionService:
@@ -203,9 +238,18 @@ class PredictionService:
 
         self.clocks: tuple[ClockPair, ...] = tuple(dvfs.clock_list())
         self._clock_X = [clock_features(c, dvfs) for c in self.clocks]
-        # stacked (candidate x clock) views, LRU-bounded
-        self._stacked: "collections.OrderedDict[tuple, StackedTable]" = (
+        self._corrector = None
+        # corrected views keyed (app name, class key); base tables keyed
+        # (resolved profile key, class key)
+        self._corrected: dict[tuple[str, Optional[str]], ClockTable] = {}
+        # stacked (candidate x clock) views, LRU-bounded; entries carry the
+        # correction epoch they were built at — any corrector attach/detach/
+        # invalidate bumps the epoch and lazily voids every stacked view
+        # without scanning the cache (base/truth tables never invalidate,
+        # so epoch-stale entries simply rebuild from the same components)
+        self._stacked: "collections.OrderedDict[tuple, tuple[int, StackedTable]]" = (
             collections.OrderedDict())
+        self._epoch = 0
         self._tables: dict[tuple, ClockTable] = {}
         self._truth: dict[tuple, ClockTable] = {}
         self._resolved: dict[str, tuple[tuple, np.ndarray]] = {}
@@ -308,11 +352,17 @@ class PredictionService:
     # ------------------------------------------------------------------ #
     #  Predicted tables
     # ------------------------------------------------------------------ #
+    @staticmethod
+    def _correction_key(name: str, class_key: Optional[str]) -> str:
+        """The key the online layer files corrections under — per app on
+        the default class, per (app, class) on explicit classes."""
+        return name if class_key is None else f"{name}::{class_key}"
+
     def base_table(self, name: str,
                    device_class: Optional[DeviceClass] = None) -> ClockTable:
         """Frozen-predictor ladder ``(P, T)`` for ``(app, device class)`` —
         one build per distinct (resolved profile, class), every later call
-        a cache hit."""
+        a cache hit. Never affected by the online correction layer."""
         ck = self.register_class(device_class)
         feat_key, feats = self._feats_for(name, ck)
         key = (feat_key, ck)
@@ -327,15 +377,64 @@ class PredictionService:
 
     def table(self, name: str,
               device_class: Optional[DeviceClass] = None) -> ClockTable:
-        """The table scheduling decisions consume. Until the online
-        correction layer is ported (ROADMAP §1.7) this *is*
-        :meth:`base_table`."""
-        return self.base_table(name, device_class)
+        """The table scheduling decisions consume: the frozen base table,
+        with the attached corrector's current per-(app, class) corrections
+        applied (cached until :meth:`invalidate`). Without a corrector this
+        *is* :meth:`base_table`."""
+        base = self.base_table(name, device_class)
+        if self._corrector is None:
+            return base
+        ck = self.register_class(device_class)
+        tab = self._corrected.get((name, ck))
+        if tab is not None:
+            self.stats.corrected_hits += 1
+            return tab
+        P, T = self._corrector.correct(self._correction_key(name, ck),
+                                       base.clocks, base.P, base.T)
+        tab = ClockTable(clocks=base.clocks, P=P, T=T, source="corrected")
+        self._corrected[(name, ck)] = tab
+        self.stats.corrected_builds += 1
+        return tab
 
+    # ------------------------------------------------------------------ #
+    #  Online correction layer
+    # ------------------------------------------------------------------ #
     def attach_corrector(self, corrector) -> None:
-        """Online measurement-feedback correction of the base tables."""
-        raise NotImplementedError(
-            "the online correction layer is not ported yet (ROADMAP §1.7)")
+        """Attach a correction provider (``correct(name, clocks, P, T) →
+        (P', T')``, see :mod:`repro_torch.core.online`). Any previously
+        cached corrected views are dropped; base caches are untouched."""
+        self._corrector = corrector
+        self._corrected.clear()
+        self._epoch += 1
+
+    def detach_corrector(self) -> None:
+        """Remove the correction layer — the service reverts bit-identically
+        to the frozen path."""
+        self._corrector = None
+        self._corrected.clear()
+        self._epoch += 1
+
+    @property
+    def corrector(self):
+        return self._corrector
+
+    def invalidate(self, name: Optional[str] = None) -> int:
+        """Targeted corrected-cache invalidation: drop app ``name``'s
+        corrected tables — across every device class — (all apps when
+        ``name`` is None) so the next :meth:`table` call re-applies the
+        corrector's current correction to the cached base. Returns the
+        number of entries dropped. Base tables are pure functions of frozen
+        inputs and are deliberately *not* invalidatable."""
+        self.stats.invalidations += 1
+        self._epoch += 1
+        if name is None:
+            n = len(self._corrected)
+            self._corrected.clear()
+            return n
+        stale = [k for k in self._corrected if k[0] == name]
+        for k in stale:
+            del self._corrected[k]
+        return len(stale)
 
     def attach_synthesizer(self, synthesizer) -> None:
         """Cold-start ladder synthesis for unprofiled apps."""
@@ -366,18 +465,19 @@ class PredictionService:
         Cache-keyed like the per-app tables — ``(kind, app identity, class
         names)``, where identity is the app *name* for predicted tables and
         the frozen profile for truth tables (the same keying rule as
-        :meth:`table` vs :meth:`truth_table`) — and LRU-bounded by
-        ``stacked_cache_size``. Component rows are the *same objects*
-        :meth:`table`/:meth:`truth_table` serve, so a consumer can verify
-        row identity in O(classes)."""
+        :meth:`table` vs :meth:`truth_table`) — LRU-bounded by
+        ``stacked_cache_size``, and epoch-validated: any corrector attach/
+        detach/:meth:`invalidate` voids cached views lazily. Component rows
+        are the *same objects* :meth:`table`/:meth:`truth_table` serve, so
+        a consumer can verify row identity in O(classes)."""
         classes = tuple(device_classes)
         key = (kind, name_or_app,
                tuple(c.name if c is not None else None for c in classes))
-        stk = self._stacked.get(key)
-        if stk is not None:
+        entry = self._stacked.get(key)
+        if entry is not None and entry[0] == self._epoch:
             self._stacked.move_to_end(key)
             self.stats.stacked_hits += 1
-            return stk
+            return entry[1]
         if kind == "truth":
             comps = [self.truth_table(name_or_app, c) for c in classes]
         elif kind == "predicted":
@@ -385,7 +485,8 @@ class PredictionService:
         else:
             raise ValueError(f"unknown stacked-table kind {kind!r}")
         stk = StackedTable.from_tables(comps)
-        self._stacked[key] = stk
+        self._stacked[key] = (self._epoch, stk)
+        self._stacked.move_to_end(key)
         while len(self._stacked) > self.stacked_cache_size:
             self._stacked.popitem(last=False)
         self.stats.stacked_builds += 1

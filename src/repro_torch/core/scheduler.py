@@ -108,10 +108,6 @@ POLICIES = tuple(_POLICY_REGISTRY)
 #: Options of the reference's ``run_schedule`` whose layers this package
 #: does not carry yet, with the ROADMAP item that ports each.
 _NOT_PORTED = {
-    "feedback": "the online correction layer (ROADMAP §1.7)",
-    "power_coordinator": "the power-cap coordinator (ROADMAP §1.8)",
-    "preemption": "the preemptive engine (ROADMAP §1.8)",
-    "admission": "admission control (ROADMAP §1.8)",
     "coldstart": "the cold-start tier (ROADMAP §1.9)",
 }
 
@@ -162,23 +158,44 @@ def run_schedule(
     classless engine bit-identically; a mixed pool turns every decision
     into a joint (device class, clock) choice.
 
+    ``feedback``: an object with ``observe(record)`` — typically an
+    :class:`~repro_torch.core.online.OnlineAdapter` attached to ``service``
+    — called after every completion (measurement-feedback loop). ``None``
+    (default) keeps the frozen path.
+
+    ``power_coordinator``: a
+    :class:`~repro_torch.core.powercap.PowerCapCoordinator` enforcing a
+    cluster-wide power cap — every dispatch is granted a per-device power
+    budget and the clock ladder is filtered to clocks fitting the grant.
+    ``None`` (default) and cap=∞ both reproduce the capless engine
+    bit-identically.
+
+    ``preemption``: a :class:`~repro_torch.core.preemption.PreemptionManager`
+    — jobs with a ``checkpoint_quantum`` become interruptible at segment
+    boundaries, mispredicted runs are re-scaled mid-flight, and stranded
+    urgent jobs can preempt slack-rich ones (the remnant resumes, possibly
+    on another device class). ``None`` (default) runs the untouched
+    non-preemptive loop; a manager whose triggers never fire is
+    bit-identical to it.
+
     ``batch_decide``: enable the vectorized decision core — compiled
     selection ladders, batched joint scoring, and the cached measurement
     substrate, all bit-identical to the scalar decision path (the
     default). ``False`` runs the original scalar code.
 
-    ``feedback``, ``power_coordinator``, ``preemption``, ``admission`` and
-    ``coldstart`` keep the reference's signature but raise
-    :class:`NotImplementedError` until their layers are ported.
+    ``admission``: an :class:`~repro_torch.core.admission.AdmissionController`
+    — sheddable-tier (best-effort) arrivals are deferred or shed when
+    predicted demand overruns the pool/cap headroom over a lookahead
+    window; shed jobs land in ``ScheduleResult.shed``. ``None`` (default)
+    runs zero admission code.
+
+    ``coldstart`` keeps the reference's signature but raises
+    :class:`NotImplementedError` until its layer is ported.
     """
-    given = {"feedback": feedback, "power_coordinator": power_coordinator,
-             "preemption": preemption, "admission": admission,
-             "coldstart": coldstart}
-    for name, value in given.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"run_schedule({name}=...) needs {_NOT_PORTED[name]}, "
-                "which is not ported yet")
+    if coldstart is not None:
+        raise NotImplementedError(
+            f"run_schedule(coldstart=...) needs {_NOT_PORTED['coldstart']}, "
+            "which is not ported yet")
     device = resolve_device(device)
     if isinstance(policy, Policy):
         pol, policy = policy, policy.name
@@ -210,22 +227,32 @@ def run_schedule(
     dc0 = (device_classes[0]
            if device_classes is not None and n_devices == 1 else None)
 
+    # On the preemptive engine a queued entry may be a resumable remnant:
+    # its budget-manager estimates must price the *remaining* work (plus
+    # the restore overhead), which the manager's scale_t lens does. With
+    # preemption=None the wrap is skipped entirely (identity).
+    def _scaled(fn):
+        if preemption is None:
+            return fn
+        return lambda j: preemption.scale_t(j, fn(j))
+
     managers = []
     if queue_aware and n_devices == 1:
         # t_min source mirrors the legacy path: ground truth for the oracle,
         # the predictor when available, otherwise no cap
         if policy == "oracle":
             managers.append(QueueAwareBudget(
-                lambda j: service.true_t_min(j.app, dc0)))
+                _scaled(lambda j: service.true_t_min(j.app, dc0))))
         elif predictor is not None and app_features is not None:
             managers.append(QueueAwareBudget(
-                lambda j: service.t_min(j.name, dc0)))
+                _scaled(lambda j: service.t_min(j.name, dc0))))
     if virtual_pacing and policy not in ("dc", "mc") and n_devices == 1:
         if policy == "oracle" or app_features is None or predictor is None:
             t_dc = lambda j: service.true_t_dc(j.app, dc0)  # noqa: E731
         else:
             t_dc = lambda j: service.t_dc(j.name, dc0)      # noqa: E731
-        managers.append(VirtualPacingBudget(t_dc, slack_share=slack_share))
+        managers.append(VirtualPacingBudget(_scaled(t_dc),
+                                            slack_share=slack_share))
 
     engine = EventEngine(
         testbed,
@@ -235,8 +262,12 @@ def run_schedule(
         budget_managers=managers,
         hooks=hooks,
         seed=seed,
+        feedback=feedback,
         device_classes=device_classes,
+        power_coordinator=power_coordinator,
+        preemption=preemption,
         batch_decide=batch_decide,
+        admission=admission,
     )
     return engine.run(jobs)
 

@@ -13,7 +13,8 @@ same bits.
 
 :data:`launches` counts kernel launches: :func:`launch` adds one each time
 the kernel is launched, and nothing else touches it except a caller
-resetting it to 0.
+resetting it to 0. :data:`rows_launches` splits the same count by the
+batch's row count.
 """
 from __future__ import annotations
 
@@ -42,6 +43,8 @@ ONE_LANE_ROWS = 32768
 
 #: Kernel launches since import (or since a caller last reset it to 0).
 launches = 0
+#: The same launches by batch rows: ``{n: launches}``.
+rows_launches: dict[int, int] = {}
 
 #: (T, device) -> (schedule int32 on the device, n_blocks, n_pairs, chains)
 _schedules: dict = {}
@@ -121,3 +124,4 @@ def launch(X: torch.Tensor, feats: torch.Tensor, thresholds: torch.Tensor,
                            f"T={T}, depth={depth}, F={F}, group={group}): "
                            f"{msg}")
     launches += 1
+    rows_launches[n] = rows_launches.get(n, 0) + 1

@@ -244,8 +244,6 @@ def test_service_tables_lazy_and_prefetched(cls, corr):
 
 def test_service_refuses_unported_tiers_and_unknown_apps():
     _, ps = _services()
-    with pytest.raises(NotImplementedError, match="§1.7"):
-        ps.attach_corrector(object())
     with pytest.raises(NotImplementedError, match="§1.9"):
         ps.attach_synthesizer(object())
     with pytest.raises(P.UnknownAppError, match="nearest profiled app"):

@@ -313,3 +313,92 @@ def test_reduced_model_serves_alike_on_card_and_cpu(arch):
     gb = serve.greedy_generate(cfg, cpu, tokens, 5, 48, device="cpu")
     assert torch.equal(ga.cpu(), gb)
     assert (fa.launches, ms.launches) != before
+
+
+@pytest.mark.parametrize("n", [1, 24, 64])
+def test_corrector_ensemble_equals_plain_version_bitwise(n):
+    """The online GBDT corrector's ensemble (30 trees of depth 2 over the
+    clock basis ``[1, s_core, s_mem]``, fitted as ``GBDTCorrector`` fits)
+    at its batches: the one-row innovation, a v5lite ladder, a v5e ladder.
+    The kernel equals its plain version, the CPU model and host numpy bit
+    for bit, and the launch is counted under its row count."""
+    dev = _card()
+    from repro_torch.core import V5E_DVFS
+    from repro_torch.core.gbdt import GBDTParams, fit_gbdt
+    from repro_torch.core.online import clock_basis
+    rng = np.random.default_rng(4)
+    clocks = V5E_DVFS.clock_list()
+    Z = np.stack([clock_basis(clocks[int(i)])
+                  for i in rng.integers(0, len(clocks), 80)])
+    y = rng.normal(0.0, 0.1, 80) + 0.3 * Z[:, 1] - 0.2 * Z[:, 2]
+    params = GBDTParams(iterations=30, depth=2, learning_rate=0.2,
+                        n_bins=16)
+    model = fit_gbdt(Z, y, params, device=dev)
+    assert model.feats.shape == (30, 2)
+    Zn = np.stack([clock_basis(c) for c in clocks[-n:]])
+    before = gp.rows_launches.get(n, 0)
+    got = model.predict(Zn)
+    assert gp.rows_launches.get(n, 0) == before + 1
+    tabs = model.device_tables()
+    want = ref.gbdt_predict_ref(torch.from_numpy(Zn).to(dev), *tabs,
+                                model.base)
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+    np.testing.assert_array_equal(
+        got, fit_gbdt(Z, y, params, device="cpu").predict(Zn))
+    np.testing.assert_array_equal(got, ref.gbdt_predict_numpy(
+        Zn, model.feats, model.thresholds, model.leaves, model.base))
+
+
+def test_layered_run_equals_cpu():
+    """Tiers with admission, a slack-weighted cap, preemption and the GBDT
+    corrector in one run: on the card (every table and correction through
+    the kernel, one-row innovations included) the records equal the CPU
+    run's field for field, ``compare=False`` provenance included."""
+    import dataclasses
+
+    import repro_torch.core as core
+    from repro_torch.configs.paper_suite import PAPER_APPS
+    from repro_torch.core.gbdt import GBDTParams
+    dev = _card()
+    apps = list(PAPER_APPS)
+    tb = core.Testbed(seed=0)
+    X, yp, yt, _ = core.build_dataset(apps, tb, seed=0)
+    rng = np.random.default_rng(7)
+    feats = {a.name: core.profile_features(a, tb, rng=rng) for a in apps}
+    g = dict(iterations=80, depth=3, learning_rate=0.15)
+    cfg = core.PredictorConfig(gbdt=GBDTParams(l2_leaf_reg=5.0, **g),
+                               gbdt_time=GBDTParams(l2_leaf_reg=3.0, **g))
+    pool = [core.V5P_CLASS, core.V5E_CLASS, core.V5E_CLASS,
+            core.V5LITE_CLASS]
+    idle = sum(c.idle_power() for c in pool)
+    sprint = sum(c.dvfs.power(c.dvfs.max_clock, 1.0, 1.0) for c in pool)
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        jobs = list(core.multi_tenant_workload(
+            apps, tb, n_jobs=200, seed=2, pool=pool, overload=10.0,
+            quantum_frac=0.25))
+        svc = core.PredictionService(
+            tb.dvfs, core.EnergyTimePredictor(cfg, device=d).fit(X, yp, yt),
+            feats, testbed=tb, device=d)
+        before = (gp.launches, gp.rows_launches.get(1, 0))
+        res = core.run_schedule(
+            jobs, "min-energy", core.Testbed(seed=100), service=svc,
+            device_classes=pool,
+            feedback=core.OnlineAdapter(svc, corrector=core.GBDTCorrector(
+                core.ObservationStore(keep_rows=True), min_obs=4, device=d)),
+            power_coordinator=core.PowerCapCoordinator(
+                idle + 0.55 * (sprint - idle)),
+            preemption=core.PreemptionManager(),
+            admission=core.AdmissionController(lookahead_s=30.0,
+                                               threshold=0.75), device=d)
+        runs[d.type] = res, (gp.launches - before[0],
+                             gp.rows_launches.get(1, 0) - before[1])
+
+    def fields(r):
+        return [(f.name, getattr(r, f.name)) for f in dataclasses.fields(r)]
+
+    (a, (k_all, k_one)), (b, (c_all, c_one)) = runs["cuda"], runs["cpu"]
+    assert [fields(r) for r in a.records] == [fields(r) for r in b.records]
+    assert [j.job_id for j in a.shed] == [j.job_id for j in b.shed]
+    assert a.shed_count > 0
+    assert k_all > 0 and k_one > 0 and c_all == c_one == 0

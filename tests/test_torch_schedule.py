@@ -161,10 +161,7 @@ def test_tables_built_once_per_app():
     assert svc.stats.prefetched_tables == len(P_APPS)
 
 
-@pytest.mark.parametrize("option,item", [
-    ("feedback", "§1.7"), ("power_coordinator", "§1.8"),
-    ("preemption", "§1.8"), ("admission", "§1.8"), ("coldstart", "§1.9"),
-])
+@pytest.mark.parametrize("option,item", [("coldstart", "§1.9")])
 def test_unported_options_raise(option, item):
     with pytest.raises(NotImplementedError, match=item):
         _port_run("min-energy", 0, **{option: object()})
