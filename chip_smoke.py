@@ -16,11 +16,12 @@ card, in phases:
    golden-trace predictor's shape (64 rows, 80 trees of depth 3); and the
    card's launch floor, an empty kernel of the same library replayed from
    a CUDA graph as the kernel is;
-3. the 17 golden traces reproduced exactly with ``device="cuda"``,
-   through the kernel: the 12 base ones (6 policies x seeds 0, 1) and the
+3. the 20 golden traces reproduced exactly with ``device="cuda"``,
+   through the kernel: the 12 base ones (6 policies x seeds 0, 1), the
    five the beyond-paper layers pin (power cap, preemption fired and
-   declined, tenant shedding and tier rescue), built as
-   ``tests/test_golden.py`` builds them;
+   declined, tenant shedding and tier rescue), and cold start, federation
+   and the model-derived mix, built as ``tests/test_golden.py`` builds
+   them and each checked live;
 4. the main path at full size: the default predictor (400 trees of depth 4
    per regressor), a CUDA ``PredictionService`` with ``prefetch_tables``,
    and the 100 000-job uniform stream on 8 devices (min-energy); then the
@@ -55,7 +56,19 @@ card, in phases:
    preemptions and drift resets must all happen. The GBDT kernel is held
    bit for bit to its plain version on the corrector's ensembles (30 trees
    of depth 2 over 3 features) at 1, 24 and 64 rows, and timed there
-   beside host numpy.
+   beside host numpy;
+10. cold start, federation and model-derived apps at full size, on the
+   card and on the CPU, records equal field for field (provenance fields
+   included): ``benchmarks/bench_coldstart.py``'s frozen and corrected
+   runs (12 profiled apps, 6 novel ones, 800 jobs on 4 devices), the
+   federated arm and straggler rescue run of
+   ``benchmarks/bench_federation.py`` (8 v5p + 48 v5e + 8 v5lite in 8
+   racks of 8, 10 000 jobs, its per-class predictor), and
+   ``benchmarks/bench_models_sched.py``'s capped headline mix (120
+   serving + 30 training jobs, max-clock and min-energy). Each run must
+   be live (novel apps served from synthesized tables; escalations and a
+   billed cross-rack migration; decode, train steps and two
+   architectures), and K1's launches are counted per scenario.
 
 Ends with a JSON line of per-kernel numbers, the card line, and
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
@@ -143,6 +156,27 @@ DRIFT_KW = dict(warmup=10, k=0.75, threshold=10.0, min_ref_std=0.05,
 #: the corrector's batches: a v5e or v5p ladder, a v5lite ladder, and
 #: the one-row innovation
 CORRECTOR_ROWS = (1, 24, 64)
+#: the golden traces of the cold-start, federation and model-derived layers
+NEW_KEYS = ("min-energy|coldstart|0", "min-energy|federation|0",
+            "min-energy|models|0")
+#: phase 10: benchmarks/bench_coldstart.py's full frozen and corrected
+#: runs (12 profiled apps, 6 novel ones, 800 jobs on 4 devices) ...
+COLD_JOBS, COLD_NOVEL, COLD_DEVICES, COLD_SEED = 800, 6, 4, 11
+#: ... benchmarks/bench_federation.py's full federated arm and its
+#: straggler rescue run (8 v5p + 48 v5e + 8 v5lite in 8 racks of 8, the
+#: cap at the idle floor + 0.65 of the uncapped peak headroom, 4 degraded
+#: v5e at 4x) ...
+FED_POOL = (("v5p", 8), ("v5e", 48), ("v5lite", 8))
+FED_RACKS = (8,) * 8
+FED_JOBS = 10_000
+FED_UTIL, FED_CAP_FRAC, FED_GUARD = 0.5, 0.65, 0.2
+FED_DEGRADED, FED_SLOWDOWN = (8, 9, 10, 11), 4.0
+#: ... and benchmarks/bench_models_sched.py's full headline mix (120
+#: serving + 30 training jobs, capped at the idle floor + 0.7 of the
+#: uncapped max-clock peak headroom)
+MODEL_POOL = ("v5p", "v5e", "v5e", "v5lite")
+MODEL_SERVE, MODEL_TRAIN, MODEL_OVERLOAD = 120, 30, 1.3
+MODEL_CAP_FRAC, MODEL_GUARD = 0.7, 0.15
 
 
 def _check(ok: bool, what: str) -> None:
@@ -351,6 +385,60 @@ def _layer_goldens(core, apps, tb, pred, feats, dev) -> dict:
     return out
 
 
+def _new_goldens(core, apps, tb, pred, feats, dev) -> dict:
+    """The cold-start, federation and model-derived golden runs, built as
+    tests/test_golden.py builds them. Returns ``{key: (result, live)}``
+    with the check that proves the scenario live."""
+    kw = dict(predictor=pred, device=dev)
+    out = {}
+    held = {a.name for a in apps[-4:]}
+    synth = core.ColdStartSynthesizer()
+    svc = core.PredictionService(tb.dvfs, predictor=pred,
+                                 app_features={n: v for n, v in feats.items()
+                                               if n not in held},
+                                 testbed=tb, device=dev)
+    r = core.run_schedule(core.make_workload(apps, tb, seed=0), "min-energy",
+                          core.Testbed(seed=100), service=svc,
+                          coldstart=synth, device=dev)
+    out[NEW_KEYS[0]] = (r, synth.stats.registered == len(held)
+                        and svc.stats.synthesized_builds > 0
+                        and held <= {x.name for x in r.records})
+    jobs = list(core.multi_rack_workload(apps, tb, n_devices=4, n_jobs=16,
+                                         seed=0, utilization=0.7))
+    fac = core.FacilityCoordinator(375.0, (2, 2),
+                                   share_policy="demand-weighted",
+                                   escalation=True, guard=0.2)
+    pre = core.FederatedPreemptionManager((2, 2), dvfs=tb.dvfs,
+                                          device_slowdown={0: 3.0})
+    r = core.run_schedule(jobs, "min-energy", core.Testbed(seed=100),
+                          app_features=feats, n_devices=4,
+                          power_coordinator=fac, preemption=pre, **kw)
+    out[NEW_KEYS[1]] = (r, fac.stats.escalations >= 1 and r.migrations >= 1
+                        and pre.fed.migration_j > 0)
+    suite = core.model_app_suite()
+    mfeats = dict(feats)
+    mfeats.update(core.register_model_apps(None, tb))
+    pool = [core.V5P_CLASS, core.V5E_CLASS]
+    jobs = core.merge_workloads(
+        core.serving_workload(suite, tb, n_jobs=14, seed=0, n_devices=2,
+                              pool=pool),
+        core.training_workload(suite, tb, n_jobs=4, seed=1, n_devices=2,
+                               pool=pool))
+    r = core.run_schedule(jobs, "min-energy", core.Testbed(seed=100),
+                          app_features=mfeats, n_devices=2,
+                          device_classes=pool, **kw)
+    out[NEW_KEYS[2]] = (r, _models_live(r))
+    return out
+
+
+def _models_live(res) -> bool:
+    """At least one decode job, one train step and two architectures."""
+    names = {x.name for x in res.records}
+    return (any(n.endswith(":decode") for n in names)
+            and any(n.endswith(":train_step") for n in names)
+            and len({n.split(":")[0] for n in names if ":" in n}) >= 2)
+
+
 def _tenant_run(core, apps, tb, pred, feats, dev):
     """Phase 9's all-layers run: the tiers scenario with admission, the
     capped coordinator, preemption and the GBDT corrector attached."""
@@ -496,6 +584,199 @@ def _layers(core, gp, ops, ref, counters, apps, tb, preds, feats, dev,
           f"take {ones * timing[1]['numpy_ms'] / 1e3:.3f} s", flush=True)
     return dict(launches=launches, by_rows=by_rows, timing=timing,
                 max_abs_err=worst, shape=(T, depth, Z.shape[1]))
+
+
+def _novel_apps(bases, n: int, seed: int = 42) -> list:
+    """benchmarks/bench_coldstart.py's never-profiled variants: a profiled
+    app's static counters with divergent latents."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        b = bases[i % len(bases)]
+        out.append(dataclasses.replace(
+            b, name=f"novel-{i}", seed=500 + i,
+            stall_frac=float(rng.uniform(0.25, 0.55)),
+            core_eff=float(rng.uniform(0.55, 0.8)),
+            mem_eff=float(rng.uniform(0.55, 0.8)),
+            wiggle_time=0.06, wiggle_power=0.05))
+    return out
+
+
+def _coldstart_runs(core, apps, tb, pred, feats, dev) -> dict:
+    """Phase 10, cold start: bench_coldstart's frozen run (synthesized
+    tables only) and corrected run (the RLS adapter over them)."""
+    novel = _novel_apps(apps[-4:], COLD_NOVEL)
+    jobs = list(core.stream_workload(apps + novel, tb, n_jobs=COLD_JOBS,
+                                     seed=COLD_SEED, n_devices=COLD_DEVICES,
+                                     utilization=0.65))
+    names = {a.name for a in novel}
+    out = {}
+    for arm in ("frozen", "corrected"):
+        svc = core.PredictionService(core.V5E_DVFS, predictor=pred,
+                                     app_features=dict(feats), testbed=tb,
+                                     device=dev)
+        synth = core.ColdStartSynthesizer()
+        adapter = (core.OnlineAdapter(svc, risk_scale=1.0, max_margin=0.2)
+                   if arm == "corrected" else None)
+        policy = core.RiskAware(core.V5E_DVFS, margin=0.05,
+                                margin_fn=adapter and adapter.margin)
+        res = core.run_schedule(jobs, policy, core.Testbed(seed=100),
+                                service=svc, n_devices=COLD_DEVICES,
+                                coldstart=synth, feedback=adapter,
+                                device=dev)
+        out[arm] = res, (synth.stats.registered == COLD_NOVEL
+                         and svc.stats.synthesized_builds > 0
+                         and names <= {x.name for x in res.records}), \
+            f"{synth.stats.summary()}; {svc.stats.summary()}"
+    return out
+
+
+def _hetero_fixture(core, apps):
+    """benchmarks/bench_hetero.py's full fixture: one profiling campaign
+    per device class, the default predictor fitted over their union."""
+    classes = (core.V5P_CLASS, core.V5E_CLASS, core.V5LITE_CLASS)
+    class_features, Xs, yps, yts = {}, [], [], []
+    for ci, cls in enumerate(classes):
+        tb_cls = core.Testbed(dvfs=cls.dvfs, seed=0)
+        rng = np.random.default_rng(7 + ci)
+        feats = {a.name: core.profile_features(a, tb_cls, rng=rng)
+                 for a in apps}
+        class_features[cls.name] = feats
+        X, yp, yt, _ = core.build_dataset(apps, tb_cls, seed=ci,
+                                          app_features=feats)
+        Xs.append(X), yps.append(yp), yts.append(yt)
+    return (class_features,
+            (np.concatenate(Xs), np.concatenate(yps), np.concatenate(yts)))
+
+
+def _federation_runs(core, apps, class_features, pred, dev) -> dict:
+    """Phase 10, federation: bench_federation's uncapped sizing run, its
+    federated arm (demand-weighted shares, escalation) and its straggler
+    rescue run on the degraded fleet, on one service."""
+    tb = core.Testbed(seed=0)
+    pool = core.make_device_pool(*((core.DEVICE_CLASSES[n], k)
+                                   for n, k in FED_POOL))
+    jobs = list(core.multi_rack_workload(apps, tb, n_jobs=FED_JOBS, seed=0,
+                                         utilization=FED_UTIL,
+                                         device_classes=pool))
+    svc = core.PredictionService(
+        core.V5E_DVFS, predictor=pred,
+        app_features=class_features[core.V5E_CLASS.name],
+        class_features=class_features, testbed=tb, device=dev)
+
+    def run(coord=None, pre=None):
+        return core.run_schedule(
+            jobs, core.RiskAware(core.V5E_DVFS, margin=0.05),
+            core.Testbed(seed=100), service=svc, device_classes=pool,
+            power_coordinator=coord, preemption=pre, device=dev)
+
+    out = {"uncapped": (run(), True, "")}
+    led = core.PowerTelemetry.from_result(out["uncapped"][0], pool=pool)
+    floor = sum(c.idle_power() for c in pool)
+    cap = floor + FED_CAP_FRAC * (led.peak_w - floor)
+    for arm in ("federated", "rescue"):
+        fac = core.FacilityCoordinator(cap, list(FED_RACKS),
+                                       share_policy="demand-weighted",
+                                       escalation=True, guard=FED_GUARD)
+        pre = (core.FederatedPreemptionManager(
+            list(FED_RACKS), dvfs=core.V5E_CLASS.dvfs,
+            device_slowdown={d: FED_SLOWDOWN for d in FED_DEGRADED})
+            if arm == "rescue" else None)
+        res = run(fac, pre)
+        live = fac.stats.escalations >= 1
+        note = f"cap {cap!r} W; {fac.stats.summary()}"
+        if pre is not None:
+            live = live and res.migrations >= 1 and pre.fed.migration_j > 0
+            note += f"; {pre.fed.summary()}; migrations {res.migrations}"
+        out[arm] = res, live, note
+    return out
+
+
+def _models_runs(core, apps, tb, pred, feats, dev) -> dict:
+    """Phase 10, model-derived apps: bench_models_sched's headline mix,
+    max-clock and min-energy under the same slack-weighted cap."""
+    suite = core.model_app_suite()
+    features = dict(feats)
+    features.update(core.register_model_apps(None, tb))
+    pool = [core.DEVICE_CLASSES[n] for n in MODEL_POOL]
+    jobs = core.merge_workloads(
+        core.serving_workload(suite, tb, n_jobs=MODEL_SERVE, seed=0,
+                              n_devices=len(pool), pool=pool,
+                              overload=MODEL_OVERLOAD),
+        core.training_workload(suite, tb, n_jobs=MODEL_TRAIN, seed=1,
+                               n_devices=len(pool), pool=pool))
+
+    def run(policy, coord=None):
+        return core.run_schedule(
+            jobs, policy, core.Testbed(seed=100), predictor=pred,
+            app_features=features, n_devices=len(pool), device_classes=pool,
+            power_coordinator=coord, device=dev)
+
+    led = core.PowerTelemetry.from_result(run("mc"), pool=pool)
+    idle = sum(c.idle_power() for c in pool)
+    cap = idle + MODEL_CAP_FRAC * max(led.peak_w - idle, 1.0)
+    out = {}
+    for policy in ("mc", "min-energy"):
+        coord = core.PowerCapCoordinator(cap, grant_policy="slack-weighted",
+                                         guard=MODEL_GUARD)
+        res = run(policy, coord)
+        out[policy] = res, _models_live(res), (f"cap {cap!r} W; "
+                                               f"{coord.stats.summary()}")
+    return out
+
+
+def _phase10(core, gp, counters, apps, tb, preds, feats, fed_preds,
+             class_features, dev, card) -> dict:
+    """Phase 10: the cold-start, federation and model-derived layers at
+    full size, on the card and on the CPU, records equal field for field.
+    Returns K1's launches (by batch rows too) and walls per scenario."""
+    print(f"== phase 10: cold start, federation and model-derived apps at "
+          f"full size; card {card}")
+    scenarios = {
+        "coldstart": lambda d, label: _coldstart_runs(
+            core, apps, tb, preds[label], feats, d),
+        "federation": lambda d, label: _federation_runs(
+            core, apps, class_features, fed_preds[label], d),
+        "models": lambda d, label: _models_runs(
+            core, apps, tb, preds[label], feats, d)}
+    report = {}
+    for name, scenario in scenarios.items():
+        runs = {}
+        for label, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            _reset(counters)                         # this slice's path
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[label] = scenario(d, label)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if label == "cuda":
+                report[name] = dict(
+                    launches=gp.launches,
+                    by_rows=dict(sorted(gp.rows_launches.items())),
+                    wall_s=wall)
+            else:
+                report[name]["cpu_wall_s"] = wall
+            for arm, (res, _, note) in runs[label].items():
+                print(f"   {name}/{arm} [{label}]: {len(res.records)} "
+                      f"records, misses {res.misses}, total_energy "
+                      f"{float(res.total_energy)!r} J; {note}", flush=True)
+            print(f"   {name} [{label}]: {wall:.3f} s (host clock)"
+                  + (f"; kernel launches {report[name]['launches']}, by "
+                     f"batch rows {report[name]['by_rows']}"
+                     if label == "cuda" else ""), flush=True)
+        for arm, (rc, live, _) in runs["cuda"].items():
+            rh = runs["cpu"][arm][0]
+            _check(len(rc.records) == len(rh.records)
+                   and all(_fields(a) == _fields(b)
+                           for a, b in zip(rc.records, rh.records))
+                   and rc.total_energy == rh.total_energy,
+                   f"{name}/{arm}: cuda vs cpu records, field for field")
+            _check(live and runs["cpu"][arm][1], f"{name}/{arm} is live")
+        _check(report[name]["launches"] > 0,
+               f"{name}: the kernel never launched")
+        print(f"   {name}: cuda == cpu field for field in every run; "
+              f"every run live", flush=True)
+    return report
 
 
 def _close(got: torch.Tensor, want: torch.Tensor, tol, what: str) -> float:
@@ -1011,11 +1292,18 @@ def main() -> int:
                 LAYER_KEYS[4]: lambda: layer.stats.tier_rescues > 0}
         _check(live.get(key, lambda: True)(), f"{key} scenario is live")
         matched += 1
-    print(f"== phase 3: {matched}/17 golden digests reproduced on {dev} "
-          f"(12 base, {len(LAYER_KEYS)} of the beyond-paper layers); "
-          f"run_schedule == legacy_run_schedule; kernel launches "
-          f"{gp.launches}", flush=True)
-    _check(matched == 17 and gp.launches > 0, "golden phase launches")
+    for key, (r, live) in _new_goldens(core, apps, tb, gpred, feats,
+                                       dev).items():
+        _check(_digest(r.records) == golden[key]["digest"],
+               f"golden digest {key}")
+        _check(live, f"{key} scenario is live")
+        matched += 1
+    print(f"== phase 3: {matched}/20 golden digests reproduced on {dev} "
+          f"(12 base, {len(LAYER_KEYS)} of the beyond-paper layers, "
+          f"{len(NEW_KEYS)} of cold start, federation and model-derived "
+          f"apps, each live); run_schedule == legacy_run_schedule; kernel "
+          f"launches {gp.launches}", flush=True)
+    _check(matched == 20 and gp.launches > 0, "golden phase launches")
 
     # -- phase 4: the main path at full size -------------------------------
     jobs = list(stream_workload(apps, tb, n_jobs=N_JOBS, seed=1,
@@ -1066,6 +1354,17 @@ def main() -> int:
               "mamba_scan": _serve("falcon-mamba-7b", ms, counters, dev, 8)}
     layers = _layers(core, gp, ops, ref, counters, apps, tb, preds, feats,
                      dev, card)
+    t0 = time.perf_counter()
+    class_features, hetero_data = _hetero_fixture(core, apps)
+    fed_pred = EnergyTimePredictor(PredictorConfig(), device=dev).fit(
+        *hetero_data)
+    fed_preds = {"cuda": fed_pred,
+                 "cpu": predictor_from_arrays(predictor_arrays(fed_pred),
+                                              device="cpu")}
+    print(f"   phase 10's per-class profiling and predictor fit "
+          f"{time.perf_counter() - t0:.2f} s (host)", flush=True)
+    derived = _phase10(core, gp, counters, apps, tb, preds, feats,
+                       fed_preds, class_features, dev, card)
 
     t768 = timing[768]
     rows = [{
@@ -1088,6 +1387,10 @@ def main() -> int:
         "corrector_max_abs_err": layers["max_abs_err"],
         "corrector_shape_trees_depth_features": layers["shape"],
         "corrector_ms_by_rows": layers["timing"],
+        # phase 10: cold start, federation and model-derived apps
+        "launches_phase10": {k: v["launches"] for k, v in derived.items()},
+        "launches_phase10_by_rows": {k: v["by_rows"]
+                                     for k, v in derived.items()},
     }]
     for name, line, err in (("flash_attention", 116, attn_err),
                             ("mamba_scan", 72, scan_err)):

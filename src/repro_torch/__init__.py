@@ -16,7 +16,13 @@ gbdt_predict`). Every table build is one host→device copy of the encoded
 batch per regressor, one launch, and one copy back. On CPU tensors the
 wrapper takes the kernel's plain PyTorch version instead; it computes the
 same fp64 sum in the same tree order, so CPU and CUDA results are equal
-bit for bit.
+bit for bit. The k-means sweep of the correlation index (the cold-start
+tier's nearest-neighbour map) runs on the device too, in fp32 and in a
+fixed summation order, so it also labels the same on both.
+
+The scheduler's beyond-paper layers (``core/{online,admission,powercap,
+preemption,coldstart,federation,model_apps}.py``) are host code like the
+engine; their device work is the tables they ask the service for.
 
 **What stays numpy on the host, deliberately.** The simulator's truth
 model with its ``np.random.default_rng`` streams, workload generation,

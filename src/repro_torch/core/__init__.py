@@ -17,11 +17,14 @@ from .workload import (BATCH_TIER, BEST_EFFORT_TIER, DEFAULT_TIER, Job,
                        SLO_TIER, TIERS, TierSpec, cap_stress_workload,
                        drift_profile, drifting_workload, edf_key,
                        heterogeneous_workload, make_device_pool,
-                       make_workload, multi_tenant_workload,
-                       rescue_stress_workload, stream_workload)
+                       make_workload, merge_workloads, multi_rack_workload,
+                       multi_tenant_workload, rescue_stress_workload,
+                       serving_workload, stream_workload, training_workload)
 from .admission import AdmissionController, AdmissionStats
 from .prediction_service import (ClockTable, PredictionService, ServiceStats,
                                  StackedTable, UnknownAppError)
+from .coldstart import (ColdStartConfig, ColdStartStats, ColdStartSynthesizer,
+                        static_features)
 from .batch_decide import DecisionCore, DecisionStats
 from .policies import (BudgetManager, DeviceCandidate, Policy,
                        QueueAwareBudget, RiskAware, VirtualPacingBudget,
@@ -35,6 +38,12 @@ from .powercap import (GRANT_POLICIES, CoordinatorStats, PowerCapCoordinator,
                        PowerSegment, PowerTelemetry)
 from .preemption import (PreemptionConfig, PreemptionManager,
                          PreemptionStats)
+from .federation import (FACILITY_SHARE_POLICIES, FacilityCoordinator,
+                         FacilityStats, FederatedPreemptionManager,
+                         FederatedStats, MigrationCostModel,
+                         RackCoordinator, RackTopology)
+from .model_apps import (KIND_KNOBS, PHASES, derive_app, derive_counters,
+                         kernel_apps, model_app_suite, register_model_apps)
 
 __all__ = [
     "ClockPair", "DVFSConfig", "V5E_DVFS",
@@ -49,12 +58,15 @@ __all__ = [
     "Job", "make_workload", "stream_workload", "make_device_pool",
     "drifting_workload", "drift_profile", "heterogeneous_workload",
     "cap_stress_workload", "rescue_stress_workload",
-    "multi_tenant_workload",
+    "multi_tenant_workload", "multi_rack_workload", "serving_workload",
+    "training_workload", "merge_workloads",
     "TierSpec", "SLO_TIER", "BATCH_TIER", "BEST_EFFORT_TIER", "DEFAULT_TIER",
     "TIERS", "edf_key",
     "AdmissionController", "AdmissionStats",
     "ClockTable", "PredictionService", "ServiceStats", "StackedTable",
     "UnknownAppError",
+    "ColdStartConfig", "ColdStartStats", "ColdStartSynthesizer",
+    "static_features",
     "DecisionCore", "DecisionStats",
     "BudgetManager", "DeviceCandidate", "Policy", "QueueAwareBudget",
     "RiskAware", "VirtualPacingBudget", "resolve_policy",
@@ -65,4 +77,9 @@ __all__ = [
     "GRANT_POLICIES", "CoordinatorStats", "PowerCapCoordinator",
     "PowerSegment", "PowerTelemetry",
     "PreemptionConfig", "PreemptionManager", "PreemptionStats",
+    "FACILITY_SHARE_POLICIES", "FacilityCoordinator", "FacilityStats",
+    "FederatedPreemptionManager", "FederatedStats", "MigrationCostModel",
+    "RackCoordinator", "RackTopology",
+    "KIND_KNOBS", "PHASES", "derive_app", "derive_counters", "kernel_apps",
+    "model_app_suite", "register_model_apps",
 ]

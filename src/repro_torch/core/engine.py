@@ -378,13 +378,13 @@ class EventEngine:
         #: the clock ladder. None (default) is the capless path, untouched.
         self.power_coordinator = power_coordinator
         #: Optional :class:`~repro_torch.core.preemption.PreemptionManager`
-        #:: jobs with a ``checkpoint_quantum`` run as segments, the
+        #: jobs with a ``checkpoint_quantum`` run as segments, the
         #: manager is consulted at every boundary, and a preempted job's
         #: remaining work re-enters the EDF queue as a resumable remnant.
         #: None (default) runs the untouched non-preemptive loop.
         self.preemption = preemption
         #: Optional :class:`~repro_torch.core.admission.AdmissionController`
-        #:: consulted for every arrival before it enters the EDF
+        #: consulted for every arrival before it enters the EDF
         #: queue; sheddable-tier work may be deferred or shed under
         #: predicted overload. None (default) runs zero admission code —
         #: bit-identical to the plain engine.
@@ -720,6 +720,19 @@ class EventEngine:
                 sel, clock, tab, d if run_dvfs is None else run_dvfs)
         return clock, plan_w
 
+    def _cold_note_fn(self):
+        """Admission consults the cold-start tier instead of raising on
+        unknown apps: when the service carries a synthesizer, every
+        arrival's profile is offered to :meth:`PredictionService.note_app`
+        *before* admission control or budget managers can query the app —
+        profiled apps are a dict-membership no-op (the zero-unseen-apps
+        bit-identity), unseen ones register their static embedding. With
+        no synthesizer attached this is None: zero per-arrival work."""
+        svc = self.service
+        if svc is not None and getattr(svc, "synthesizer", None) is not None:
+            return svc.note_app
+        return None
+
     def run(self, jobs: Iterable[Job]) -> ScheduleResult:
         """Execute the stream to completion; returns per-job records (one
         per *segment* on the preemptive path)."""
@@ -739,6 +752,7 @@ class EventEngine:
         adm = self.admission
         if adm is not None:
             adm.reset(self)
+        note_cold = self._cold_note_fn()
         self.device_clocks = {dev: None for dev in range(self.n_devices)}
 
         # free-heap entries are always (free_time, device_index) — the
@@ -793,6 +807,8 @@ class EventEngine:
                     free_t = max(free_t, stream.peek_arrival())
             while not stream.exhausted and stream.peek_arrival() <= free_t:
                 job = stream.pop()
+                if note_cold is not None:
+                    note_cold(job.app)    # register unseen apps
                 if adm is not None and not adm.check(job, free_t, queue):
                     continue              # shed or parked — never queued
                 enqueue(job, free_t)
@@ -939,6 +955,7 @@ class EventEngine:
         adm = self.admission
         if adm is not None:
             adm.reset(self)
+        note_cold = self._cold_note_fn()
         self.device_clocks = {dev: None for dev in range(self.n_devices)}
 
         free = [(0.0, dev) for dev in range(self.n_devices)]
@@ -967,6 +984,8 @@ class EventEngine:
         def admit(upto: float, force_release: bool = False) -> None:
             while not stream.exhausted and stream.peek_arrival() <= upto:
                 j = stream.pop()
+                if note_cold is not None:
+                    note_cold(j.app)      # register unseen apps
                 if adm is not None and not adm.check(j, upto, queue):
                     continue              # shed or parked — never queued
                 enqueue(j, upto)

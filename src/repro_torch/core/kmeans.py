@@ -11,6 +11,13 @@ float32 there, and matching labels and SSE needs the same precision. The
 k-means++ init and :meth:`KMeans.predict` stay float64 numpy on the host, as
 in the reference. Data sizes are tiny (apps × features): this is for
 fidelity, not throughput.
+
+Every sum of the sweep (squared distances over features, centre sums and
+SSE over rows) runs in one fixed pairwise order built from elementwise
+adds (:func:`_ordered_sum`), so a card and the CPU give the same bits:
+a reduction kernel or a cuBLAS product would sum in an order of its own
+(and a product would read the global TF32 switch), and a label that flips
+at a near-tie changes every cold-start neighbour downstream.
 """
 from __future__ import annotations
 
@@ -24,16 +31,33 @@ from ..device import DEFAULT_DEVICE, resolve_device
 __all__ = ["KMeans", "elbow_sse", "choose_k_elbow"]
 
 
+def _ordered_sum(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` in a fixed pairwise order, the same on every device:
+    zero-pad to a power of two, then add the upper half onto the lower
+    half until one slice is left. Only elementwise adds, so the bits do not
+    depend on a reduction kernel's or a GEMM's order."""
+    t = t.movedim(dim, 0)
+    n = t.shape[0]
+    size = 1 << max(n - 1, 0).bit_length()
+    if size != n:
+        t = torch.cat([t, t.new_zeros((size - n,) + tuple(t.shape[1:]))])
+    while t.shape[0] > 1:
+        half = t.shape[0] // 2
+        t = t[:half] + t[half:]
+    return t[0]
+
+
 def _lloyd_step(X: torch.Tensor, centers: torch.Tensor, k: int):
-    d2 = ((X[:, None, :] - centers[None, :, :]) ** 2).sum(dim=-1)
+    diff = X[:, None, :] - centers[None, :, :]
+    d2 = _ordered_sum(diff * diff, -1)                           # (n, k)
     assign = torch.argmin(d2, dim=1)
     one_hot = torch.nn.functional.one_hot(assign, k).to(X.dtype)  # (n, k)
-    counts = one_hot.sum(dim=0)                                  # (k,)
-    sums = one_hot.T @ X                                         # (k, d)
+    counts = one_hot.sum(dim=0)                   # (k,), exact integers
+    sums = _ordered_sum(one_hot[:, :, None] * X[:, None, :], 0)  # (k, d)
     new_centers = sums / torch.clamp(counts, min=1.0)[:, None]
     # keep empty clusters where they were
     new_centers = torch.where(counts[:, None] > 0, new_centers, centers)
-    sse = d2.min(dim=1).values.sum()
+    sse = _ordered_sum(d2.min(dim=1).values, 0)
     return new_centers, assign, sse
 
 

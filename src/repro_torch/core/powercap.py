@@ -40,10 +40,6 @@ Grant lifecycle (one dispatch decision, driven by the engine)::
                         cap) until `end`; `drawn` is the realized draw the
                         next escalation may reclaim down to
 
-The reference coordinator's federation hooks (``reclaimable_w``,
-``reclaim_unused``, ``resize_cap``, ``release_cap``, ``active_grants``),
-which only its rack coordinators call, arrive with ROADMAP §1.10.
-
 Invariants (held against the reference by tests/test_torch_layers.py):
 
 1. **Cap safety** — at every instant, Σ committed grants + Σ idle floors
@@ -427,6 +423,11 @@ class PowerCapCoordinator:
         """Watts not yet spoken for (cap − Σ allocations)."""
         return max(self.cap_w - self.allocated_w, 0.0)
 
+    def active_grants(self) -> dict[int, tuple[float, float, float]]:
+        """Snapshot of running grants: dev -> (grant_w, end, drawn_w)."""
+        return {d: (g, end, drawn)
+                for d, (g, end, drawn, _) in self._active.items()}
+
     # ------------------------------------------------------------------ #
     def reset(self, idle_powers: Sequence[float],
               t_min_fn: Optional[Callable] = None,
@@ -504,6 +505,51 @@ class PowerCapCoordinator:
                 self._active[d2] = (keep, end, drawn, rec)
                 if rec is not None:
                     rec.power_grant_w = keep
+
+    @property
+    def reclaimable_w(self) -> float:
+        """Watts a :meth:`reclaim_unused` would return to the pool right
+        now: Σ over running grants of ``grant − max(drawn, idle)``.
+        Non-mutating — the federation layer probes this on sibling racks
+        before deciding whether an escalation can be satisfied."""
+        return math.fsum(
+            max(g - max(drawn, self._idle[d]), 0.0)
+            for d, (g, _, drawn, _) in self._active.items())
+
+    def reclaim_unused(self) -> float:
+        """Public face of :meth:`_reclaim` for a parent coordinator:
+        shrink every running grant to ``max(realized draw, idle)`` and
+        return the watts freed."""
+        before = self.allocated_w
+        self._reclaim()
+        return before - self.allocated_w
+
+    def resize_cap(self, new_cap_w: float) -> None:
+        """Re-point the cap mid-episode (federation rebalancing). The new
+        cap must cover current allocations — the parent may only move
+        *unallocated* headroom between racks, never watts a grant already
+        holds."""
+        new_cap_w = float(new_cap_w)
+        if math.isfinite(new_cap_w) and (
+                new_cap_w < self.allocated_w - 1e-6):
+            raise ValueError(
+                f"cannot shrink cap to {new_cap_w:.3f}W below current "
+                f"allocations {self.allocated_w:.3f}W")
+        self.cap_w = new_cap_w
+
+    def release_cap(self, max_w: float) -> float:
+        """Give up to ``max_w`` of this coordinator's *unallocated* cap
+        back to a parent pool (after first reclaiming unused grant slack)
+        and shrink ``cap_w`` by the amount released. Returns the watts
+        actually released — the parent re-grants them to a sibling."""
+        if not math.isfinite(self.cap_w) or max_w <= 0:
+            return 0.0
+        self._reclaim()
+        give = min(float(max_w), self.headroom_w)
+        if give <= 0:
+            return 0.0
+        self.cap_w -= give
+        return give
 
     def offer(self, dev: int, job: Job, start: float,
               queue: Iterable = ()) -> float:

@@ -59,10 +59,16 @@ Invariants:
 * **Rowwise identity.** The GBDT kernel and its plain version sum each row
   independently in a fixed tree order, so a table sliced out of a stacked
   prefetch is bit-identical to the same table built alone.
-
-The reference's cold-start tier attaches through
-:meth:`attach_synthesizer`, which raises :class:`NotImplementedError`
-until that layer is ported (ROADMAP §1.9).
+* **Cold-start tier.** An attached
+  :class:`~repro_torch.core.coldstart.ColdStartSynthesizer` makes
+  unprofiled apps resolvable: :meth:`resolve` returns a ``("cold", name)``
+  key with the app's static embedding, :meth:`base_table` builds the
+  analytic roofline ladder (``source="synthesized"``, host numpy) instead of
+  calling the predictor, and the correction layer refines it exactly like a
+  profiled table. Profiled apps never touch the synthesizer — attaching one
+  changes no profiled-app decision. Unknown apps with no synthesizer
+  coverage raise a typed :class:`UnknownAppError` carrying the nearest
+  profiled name.
 """
 from __future__ import annotations
 
@@ -86,9 +92,10 @@ __all__ = ["ClockTable", "StackedTable", "ServiceStats", "PredictionService",
 
 
 class UnknownAppError(KeyError):
-    """An app has no profiled feature vector. Subclasses :class:`KeyError`;
-    the message names the nearest profiled app (closest-spelled name) so a
-    mis-keyed job is diagnosable from the traceback alone."""
+    """An app has no profiled feature vector and no attached cold-start
+    synthesizer covers it. Subclasses :class:`KeyError`; the message names
+    the nearest profiled app (closest-spelled name) so a mis-keyed job is
+    diagnosable from the traceback alone."""
 
     def __init__(self, name: str, known=()):
         self.name = name
@@ -115,6 +122,7 @@ class ClockTable:
     P: np.ndarray                 # predicted/true power (W) per clock
     T: np.ndarray                 # predicted/true time (s) per clock
     source: str = "predicted"     # "predicted"|"truth"|"corrected"
+                                  # |"synthesized" (cold-start tier)
 
     def __len__(self) -> int:
         return len(self.clocks)
@@ -191,6 +199,7 @@ class ServiceStats:
     stacked_builds: int = 0       # stacked (candidate x clock) view builds
     stacked_hits: int = 0         # joint decisions served from stacked cache
     prefetched_tables: int = 0    # tables built via batched prefetch
+    synthesized_builds: int = 0   # cold-start analytic ladder builds
 
     def summary(self) -> str:
         return (f"table_builds={self.table_builds} hits={self.table_hits} "
@@ -239,6 +248,7 @@ class PredictionService:
         self.clocks: tuple[ClockPair, ...] = tuple(dvfs.clock_list())
         self._clock_X = [clock_features(c, dvfs) for c in self.clocks]
         self._corrector = None
+        self._synthesizer = None
         # corrected views keyed (app name, class key); base tables keyed
         # (resolved profile key, class key)
         self._corrected: dict[tuple[str, Optional[str]], ClockTable] = {}
@@ -272,12 +282,22 @@ class PredictionService:
         """Profile vector used to predict for ``name``: the app's own
         default-clock profile, or — when a correlation index is configured —
         the correlated exhaustively-profiled app's vector (paper §III-D).
-        Unprofiled apps raise a typed :class:`UnknownAppError`."""
+
+        Unprofiled apps resolve to ``("cold", name)`` with their static
+        embedding when the attached synthesizer has them registered
+        (correlation indirection deliberately skipped — the cold tier does
+        its own nearest-profiled mapping); otherwise a typed
+        :class:`UnknownAppError` is raised."""
         hit = self._resolved.get(name)
         if hit is not None:
             return hit
         feats = (self.app_features or {}).get(name)
         if feats is None:
+            synth = self._synthesizer
+            if synth is not None and synth.knows(name):
+                resolved = (("cold", name), synth.static_features_of(name))
+                self._resolved[name] = resolved
+                return resolved
             raise UnknownAppError(name, known=self.app_features or ())
         key = ("own", name)
         if self.corr_index is not None and self.corr_features is not None:
@@ -370,7 +390,16 @@ class PredictionService:
         if tab is not None:
             self.stats.table_hits += 1
             return tab
-        tab = self.table_for_features(feats, class_key=ck)
+        if feat_key[0] == "cold":
+            # cold-start tier: analytic roofline ladder from the attached
+            # synthesizer — no predictor rows, same cache-key contract
+            clocks = self.clocks_for(ck)
+            P, T = self._synthesizer.synthesize(
+                name, clocks, self._class_dvfs(ck))
+            tab = ClockTable(clocks=clocks, P=P, T=T, source="synthesized")
+            self.stats.synthesized_builds += 1
+        else:
+            tab = self.table_for_features(feats, class_key=ck)
         self._tables[key] = tab
         self.stats.table_builds += 1
         return tab
@@ -427,6 +456,10 @@ class PredictionService:
         inputs and are deliberately *not* invalidatable."""
         self.stats.invalidations += 1
         self._epoch += 1
+        if name is not None and self._synthesizer is not None:
+            # observation-driven invalidations are the cold-start
+            # promotion clock (cold → warmed); profiled names are a no-op
+            self._synthesizer.note_invalidation(name)
         if name is None:
             n = len(self._corrected)
             self._corrected.clear()
@@ -436,10 +469,48 @@ class PredictionService:
             del self._corrected[k]
         return len(stale)
 
+    # ------------------------------------------------------------------ #
+    #  Cold-start tier
+    # ------------------------------------------------------------------ #
     def attach_synthesizer(self, synthesizer) -> None:
-        """Cold-start ladder synthesis for unprofiled apps."""
-        raise NotImplementedError(
-            "the cold-start tier is not ported yet (ROADMAP §1.9)")
+        """Attach a cold-start table source (see
+        :class:`~repro_torch.core.coldstart.ColdStartSynthesizer`):
+        unprofiled apps it registers become resolvable, served analytic
+        ``source="synthesized"`` base tables that the correction layer
+        refines like any profiled table. Profiled apps are unaffected —
+        their resolve path never consults the synthesizer. The
+        synthesizer's nearest-profiled index runs on this service's
+        device."""
+        self._synthesizer = synthesizer
+        if synthesizer is not None:
+            synthesizer.bind(self)
+        self._epoch += 1
+
+    def detach_synthesizer(self) -> None:
+        """Remove the cold-start tier. Previously synthesized base tables
+        stay cached (they are pure functions of frozen inputs); apps that
+        only resolved through the synthesizer become unknown again for
+        *new* resolutions."""
+        self._synthesizer = None
+        self._resolved = {n: v for n, v in self._resolved.items()
+                          if v[0][0] != "cold"}
+        self._epoch += 1
+
+    @property
+    def synthesizer(self):
+        return self._synthesizer
+
+    def note_app(self, app: AppProfile) -> bool:
+        """Admission-time registration hook (the engine calls this on
+        every arrival when a synthesizer is attached): profiled apps are
+        a dictionary-membership no-op — the zero-unseen-apps identity —
+        while unprofiled ones register their static embedding with the
+        synthesizer. Returns True when the app was newly registered."""
+        if self._synthesizer is None:
+            return False
+        if self.app_features is not None and app.name in self.app_features:
+            return False
+        return self._synthesizer.register(app)
 
     def table_for_features(self, feats: np.ndarray,
                            class_key: Optional[str] = None) -> ClockTable:
@@ -516,6 +587,13 @@ class PredictionService:
                 key = (feat_key, ck)
                 if key in self._tables or key in seen:
                     continue
+                if feat_key[0] == "cold":
+                    # synthesized ladders are analytic, not predictor
+                    # rows — build individually, keep them out of the
+                    # stacked predictor batch
+                    self.base_table(name, cls)
+                    built += 1
+                    continue
                 seen.add(key)
                 todo.append((key, feats))
             if not todo:
@@ -556,7 +634,17 @@ class PredictionService:
             clock = d.max_clock if which == "min" else d.default_clock
             feats = (self.app_features or {}).get(name)
             if feats is None:
-                raise UnknownAppError(name, known=self.app_features or ())
+                synth = self._synthesizer
+                if synth is None or not synth.knows(name):
+                    raise UnknownAppError(name,
+                                          known=self.app_features or ())
+                # cold apps: evaluate the synthesized roofline at the
+                # exact max/default clock (which need not be a ladder
+                # element) — same formula every table-driven decision sees
+                _, T1 = synth.synthesize(name, (clock,), d)
+                val = float(T1[0])
+                cache[(name, ck)] = val
+                return val
             if ck is not None:
                 feats = self.class_features.get(ck, {}).get(name, feats)
             x = np.concatenate([feats, clock_features(clock, d)])

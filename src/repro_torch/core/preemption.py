@@ -193,9 +193,10 @@ class PreemptionManager:
     # The engine drives these at every dispatch/boundary; the base manager
     # answers with the identity on each one, so a non-federated run never
     # changes a float — the same lever-off contract as every other
-    # subsystem. The reference's federation-aware manager (ROADMAP §1.10)
-    # overrides them with straggler detection, degradation truth,
-    # migration billing, and device quarantine.
+    # subsystem. :class:`~repro_torch.core.federation.
+    # FederatedPreemptionManager` overrides them with StragglerMonitor-driven
+    # detection, degradation truth, migration billing, and device
+    # quarantine.
     def slowdown_of(self, dev: int) -> float:
         """Multiplicative execution-time degradation of device ``dev``
         (truth side). 1.0 = healthy; the engine multiplies realized

@@ -105,13 +105,6 @@ POLICIES = tuple(_POLICY_REGISTRY)
 # ---------------------------------------------------------------------- #
 #  New composable path
 # ---------------------------------------------------------------------- #
-#: Options of the reference's ``run_schedule`` whose layers this package
-#: does not carry yet, with the ROADMAP item that ports each.
-_NOT_PORTED = {
-    "coldstart": "the cold-start tier (ROADMAP §1.9)",
-}
-
-
 def run_schedule(
     jobs: list[Job],
     policy: "str | Policy",
@@ -168,7 +161,13 @@ def run_schedule(
     cluster-wide power cap — every dispatch is granted a per-device power
     budget and the clock ladder is filtered to clocks fitting the grant.
     ``None`` (default) and cap=∞ both reproduce the capless engine
-    bit-identically.
+    bit-identically. A :class:`~repro_torch.core.federation.
+    FacilityCoordinator` plugs into the same slot: the facility splits its
+    cap into per-rack :class:`~repro_torch.core.powercap.PowerCapCoordinator`
+    slices and escalates grants hierarchically; a single-rack facility is
+    bit-identical to the bare coordinator it wraps. Pair it with a
+    :class:`~repro_torch.core.federation.FederatedPreemptionManager` (as
+    ``preemption``) for straggler-driven cross-rack rescue migration.
 
     ``preemption``: a :class:`~repro_torch.core.preemption.PreemptionManager`
     — jobs with a ``checkpoint_quantum`` become interruptible at segment
@@ -189,13 +188,15 @@ def run_schedule(
     window; shed jobs land in ``ScheduleResult.shed``. ``None`` (default)
     runs zero admission code.
 
-    ``coldstart`` keeps the reference's signature but raises
-    :class:`NotImplementedError` until its layer is ported.
+    ``coldstart``: a :class:`~repro_torch.core.coldstart.ColdStartSynthesizer`
+    — attached to the service as the cold-start table-source tier, so
+    unprofiled apps arriving mid-stream get an analytic roofline ladder
+    synthesized from their static counters (refined by ``feedback`` like any
+    profiled table) instead of raising
+    :class:`~repro_torch.core.prediction_service.UnknownAppError`. ``None``
+    (default) leaves the service's synthesizer state untouched; with every
+    app profiled an attached synthesizer changes nothing.
     """
-    if coldstart is not None:
-        raise NotImplementedError(
-            f"run_schedule(coldstart=...) needs {_NOT_PORTED['coldstart']}, "
-            "which is not ported yet")
     device = resolve_device(device)
     if isinstance(policy, Policy):
         pol, policy = policy, policy.name
@@ -215,6 +216,8 @@ def run_schedule(
     elif service.device != device:
         raise ValueError(f"service lives on {service.device}, run_schedule "
                          f"was asked for {device}")
+    if coldstart is not None:
+        service.attach_synthesizer(coldstart)
     predictor = service.predictor
     app_features = service.app_features
     if policy in ("d-dvfs", "min-energy", "risk-aware") and predictor is None:

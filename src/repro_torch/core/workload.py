@@ -1,4 +1,4 @@
-"""Workload generation (paper §V-C): the base generators.
+"""Workload generation (paper §V-C) and the beyond-paper streams.
 
 Arrival times: truncated normal over [1, 50] s (paper: "for the arrival time,
 the minimum and maximum value range of distribution are set to (1, 50)").
@@ -16,9 +16,7 @@ while guaranteeing the Default-Clock baseline itself is schedulable (as in
 the paper, where DC/MC meet all deadlines but burn more energy).
 
 Host numpy throughout: every draw comes from ``np.random.default_rng``, so
-a stream is the same job for job as the reference generator's. The
-multi-rack, serving and training generators arrive with the layers that
-consume them (ROADMAP §1.10–§1.11).
+a stream is the same job for job as the reference generator's.
 """
 from __future__ import annotations
 
@@ -34,7 +32,8 @@ __all__ = ["Job", "TierSpec", "SLO_TIER", "BATCH_TIER", "BEST_EFFORT_TIER",
            "stream_workload", "drifting_workload", "drift_profile",
            "make_device_pool", "heterogeneous_workload",
            "cap_stress_workload", "rescue_stress_workload",
-           "multi_tenant_workload"]
+           "multi_tenant_workload", "multi_rack_workload",
+           "serving_workload", "training_workload", "merge_workloads"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,8 +87,8 @@ class Job:
     deadline: float            # absolute
     job_id: int = 0
     #: Seconds between checkpoint opportunities when the engine runs with
-    #: a :class:`~repro_torch.core.preemption.PreemptionManager`; None = the
-    #: job is uninterruptible (and on the non-preemptive engine the field is
+    #: a :class:`~repro_torch.core.preemption.PreemptionManager`; None = the job
+    #: is uninterruptible (and on the non-preemptive engine the field is
     #: inert either way).
     checkpoint_quantum: "float | None" = None
     #: Fraction of the job's work this (remnant) entry still covers, and
@@ -316,6 +315,87 @@ def cap_stress_workload(
             slack = float(rng.uniform(*slack_range)) * t_cls
             yield Job(app=apps[idx], arrival=now, deadline=done + slack,
                       job_id=jid)
+            jid += 1
+
+
+def multi_rack_workload(
+    apps: list[AppProfile],
+    testbed: Testbed,
+    n_devices: int = 64,
+    n_jobs: int = 10_000,
+    seed: int = 0,
+    burst: int | None = None,
+    mean_interburst: float | None = None,
+    slack_range: tuple[float, float] = (0.08, 0.5),
+    utilization: float = 0.8,
+    quantum_frac: float = 0.25,
+    dvfs: DVFSConfig | None = None,
+    device_classes: list[DeviceClass] | None = None,
+):
+    """Bursty checkpointable stream for a federated multi-rack pool.
+
+    The federation stress case (:mod:`~repro_torch.core.federation`): an
+    ``n_devices`` pool partitioned into racks by the facility
+    coordinator, fed **bursts** of ``burst`` simultaneous jobs (default:
+    half the pool). On a classless pool the engine's free-heap tie-break
+    dispatches each burst onto the *lowest-index* free devices, so
+    bursts pile onto the first racks while later racks idle; on an
+    explicit heterogeneous pool (``device_classes`` — positional, like
+    :func:`run_schedule`'s argument), joint placement concentrates work
+    on the classes worth running, while a **static** per-rack cap split
+    hands every device the *same* burn share — starving racks of
+    power-hungry fast devices while racks of low-draw devices sit on
+    watts they physically cannot burn. Both imbalances are precisely
+    what demand-weighted rebalancing, hierarchical grant escalation,
+    and cross-rack migration exist to fix.
+
+    Deadlines keep :func:`cap_stress_workload`'s DC-anchoring guarantee
+    (virtual default-clock schedule over the whole pool — per-class
+    default clocks when ``device_classes`` is given, tight
+    ``slack_range`` slack), so the uncapped pool-wide baseline stays
+    approximately schedulable at ``utilization`` — misses under a
+    facility cap are the cap split's doing, not an infeasible stream.
+    Every job carries ``checkpoint_quantum = quantum_frac × t_dc`` so
+    segments exist for the migration machinery to move. A generator in
+    nondecreasing arrival order, like every stream here.
+    """
+    rng = np.random.default_rng(seed)
+    if device_classes is not None:
+        n_devices = len(device_classes)
+    if burst is None:
+        burst = max(1, n_devices // 2)
+    if burst < 1:
+        raise ValueError("burst must be >= 1")
+    if device_classes is None:
+        d = dvfs or testbed.dvfs
+        t_dc_dev = [np.array([testbed.true_time(a, d.default_clock,
+                                                dvfs=dvfs)
+                              for a in apps])] * n_devices
+        rate = n_devices / float(t_dc_dev[0].mean())
+    else:
+        by_cls: dict[str, np.ndarray] = {}
+        for cls in device_classes:
+            if cls.name not in by_cls:
+                by_cls[cls.name] = np.array([
+                    testbed.true_time(a, cls.dvfs.default_clock,
+                                      dvfs=cls.dvfs) for a in apps])
+        t_dc_dev = [by_cls[cls.name] for cls in device_classes]
+        rate = sum(1.0 / float(t.mean()) for t in t_dc_dev)
+    if mean_interburst is None:
+        mean_interburst = burst / (rate * utilization)
+    dev_free = np.zeros(n_devices)
+    now, jid = 0.0, 0
+    while jid < n_jobs:
+        now += float(rng.exponential(mean_interburst))
+        for _ in range(min(burst, n_jobs - jid)):
+            idx = int(rng.integers(len(apps)))
+            dev = int(np.argmin(dev_free))      # virtual DC dispatch
+            t_a = float(t_dc_dev[dev][idx])
+            done = max(float(dev_free[dev]), now) + t_a
+            dev_free[dev] = done
+            slack = float(rng.uniform(*slack_range)) * t_a
+            yield Job(app=apps[idx], arrival=now, deadline=done + slack,
+                      job_id=jid, checkpoint_quantum=quantum_frac * t_a)
             jid += 1
 
 
@@ -589,3 +669,165 @@ def drifting_workload(
         if i >= cut and job.name in drifted:
             job = dataclasses.replace(job, app=drifted[job.name])
         yield job
+
+
+def _conservative_t_ref(apps: list[AppProfile], testbed: Testbed,
+                        pool: list[DeviceClass] | None, n_devices: int
+                        ) -> tuple[np.ndarray, float, int]:
+    """Per-app default-clock anchor time on the *slowest* class present
+    (feasible even under a bad placement) plus the pool's aggregate
+    default-clock throughput — the :func:`multi_tenant_workload` anchoring
+    contract, shared by the serving/training generators."""
+    if pool is None:
+        t_ref = np.array([testbed.true_time(a, testbed.dvfs.default_clock)
+                          for a in apps])
+        return t_ref, n_devices / float(t_ref.mean()), n_devices
+    t_cls: dict[str, np.ndarray] = {}
+    for cls in pool:
+        if cls.name not in t_cls:
+            t_cls[cls.name] = np.array([
+                testbed.true_time(a, cls.dvfs.default_clock,
+                                  dvfs=cls.dvfs) for a in apps])
+    t_ref = np.max(np.stack(list(t_cls.values())), axis=0)
+    rate = sum(1.0 / float(t_cls[cls.name].mean()) for cls in pool)
+    return t_ref, rate, len(pool)
+
+
+#: Default serving tier mix: latency-SLO interactive traffic dominates,
+#: with a batch band (bulk scoring) and a best-effort backfill slice.
+SERVING_TIER_MIX: tuple[tuple[TierSpec, float], ...] = (
+    (SLO_TIER, 0.50), (BATCH_TIER, 0.30), (BEST_EFFORT_TIER, 0.20),
+)
+
+
+def serving_workload(
+    apps: list[AppProfile],
+    testbed: Testbed,
+    n_jobs: int = 400,
+    seed: int = 0,
+    n_devices: int = 4,
+    pool: list[DeviceClass] | None = None,
+    overload: float = 1.0,
+    tier_mix: tuple[tuple[TierSpec, float], ...] | None = None,
+    diurnal_amp: float = 0.6,
+    period_s: float | None = None,
+    prefill_frac: float = 0.3,
+    mean_interarrival: float | None = None,
+    quantum_frac: float | None = None,
+):
+    """Diurnal inference traffic over the model-derived suite.
+
+    Draws only the ``decode`` apps in ``apps`` (each a generation
+    segment), plus — with probability ``prefill_frac`` — a ``prefill``
+    admission burst, so the stream looks like production serving: mostly
+    decode, punctuated by prompt ingestion. Arrivals are the
+    :func:`multi_tenant_workload` nonhomogeneous Poisson process
+    (``1 + diurnal_amp·sin(2πt/period_s)`` rate modulation at ``overload``
+    × the pool's aggregate default-clock throughput); each request draws
+    an SLA tier from ``tier_mix`` (default :data:`SERVING_TIER_MIX`) and
+    an **arrival-anchored** deadline ``arrival + (1 + U[tier.slack_range])
+    × t_ref`` with ``t_ref`` the app's default-clock time on the slowest
+    class in ``pool`` — the conservative anchor that keeps SLO misses a
+    dispatch-latency signal rather than a backlog artifact. A generator
+    in nondecreasing arrival order, like every stream here.
+    """
+    if not 0.0 <= prefill_frac <= 1.0:
+        raise ValueError("prefill_frac must be in [0, 1]")
+    decode_apps = [a for a in apps if a.kind == "decode"]
+    prefill_apps = [a for a in apps if a.kind == "prefill"]
+    if not decode_apps:
+        raise ValueError("serving_workload needs at least one decode app")
+    if not prefill_apps:
+        prefill_frac = 0.0
+    mix = SERVING_TIER_MIX if tier_mix is None else tuple(tier_mix)
+    total_p = sum(p for _, p in mix)
+    if total_p <= 0:
+        raise ValueError("tier_mix probabilities must sum to > 0")
+    cum, acc = [], 0.0
+    for _, p in mix:
+        acc += p / total_p
+        cum.append(acc)
+    rng = np.random.default_rng(seed)
+    served = decode_apps + prefill_apps
+    t_ref, rate, _ = _conservative_t_ref(served, testbed, pool, n_devices)
+    if mean_interarrival is None:
+        mean_interarrival = 1.0 / (rate * overload)
+    if period_s is None:
+        period_s = max(n_jobs * mean_interarrival / 3.0,
+                       8.0 * mean_interarrival)
+    now = 0.0
+    for jid in range(n_jobs):
+        gap = float(rng.exponential(mean_interarrival))
+        mod = 1.0 + diurnal_amp * np.sin(2.0 * np.pi * now / period_s)
+        now += gap / max(float(mod), 1e-9)
+        u = float(rng.random())
+        tier = mix[-1][0]
+        for (t, _), edge in zip(mix, cum):
+            if u <= edge:
+                tier = t
+                break
+        if prefill_frac and float(rng.random()) < prefill_frac:
+            idx = len(decode_apps) + int(rng.integers(len(prefill_apps)))
+        else:
+            idx = int(rng.integers(len(decode_apps)))
+        t_a = float(t_ref[idx])
+        slack = 1.0 + float(rng.uniform(*tier.slack_range))
+        q = None if quantum_frac is None else quantum_frac * t_a
+        yield Job(app=served[idx], arrival=now, deadline=now + slack * t_a,
+                  job_id=jid, checkpoint_quantum=q, tier=tier)
+
+
+def training_workload(
+    apps: list[AppProfile],
+    testbed: Testbed,
+    n_jobs: int = 120,
+    seed: int = 0,
+    n_devices: int = 4,
+    pool: list[DeviceClass] | None = None,
+    utilization: float = 0.4,
+    slack_range: tuple[float, float] = (2.0, 6.0),
+    tier: TierSpec = BATCH_TIER,
+    mean_interarrival: float | None = None,
+    quantum_frac: float | None = None,
+):
+    """Background training jobs over the model-derived suite.
+
+    A steady (non-diurnal) Poisson stream of the ``train`` apps in
+    ``apps`` — optimizer steps with gradient all-reduce traffic — sized to
+    ``utilization`` of the pool's aggregate default-clock throughput and
+    tagged ``tier`` (default :data:`BATCH_TIER`: above best-effort, below
+    the serving SLO tier, never shed). Deadlines are arrival-anchored with
+    generous batch slack (``arrival + (1 + U[slack_range]) × t_ref``, the
+    conservative slowest-class anchor), so train steps yield headroom to
+    interactive traffic without becoming unschedulable. Meant to be merged
+    under a serving stream via :func:`merge_workloads`. A generator in
+    nondecreasing arrival order, like every stream here.
+    """
+    train_apps = [a for a in apps if a.kind == "train"]
+    if not train_apps:
+        raise ValueError("training_workload needs at least one train app")
+    rng = np.random.default_rng(seed)
+    t_ref, rate, _ = _conservative_t_ref(train_apps, testbed, pool,
+                                         n_devices)
+    if mean_interarrival is None:
+        mean_interarrival = 1.0 / (rate * utilization)
+    now = 0.0
+    for jid in range(n_jobs):
+        now += float(rng.exponential(mean_interarrival))
+        idx = int(rng.integers(len(train_apps)))
+        t_a = float(t_ref[idx])
+        slack = 1.0 + float(rng.uniform(*slack_range))
+        q = None if quantum_frac is None else quantum_frac * t_a
+        yield Job(app=train_apps[idx], arrival=now,
+                  deadline=now + slack * t_a, job_id=jid,
+                  checkpoint_quantum=q, tier=tier)
+
+
+def merge_workloads(*streams) -> list[Job]:
+    """Merge job streams into one arrival-ordered list with contiguous
+    re-numbered ``job_id``\\ s (the engine requires unique ids; generators
+    each number from 0). The sort is stable, so ties keep the positional
+    stream order — deterministic for deterministic inputs."""
+    jobs = [j for s in streams for j in s]
+    jobs.sort(key=lambda j: j.arrival)
+    return [dataclasses.replace(j, job_id=i) for i, j in enumerate(jobs)]

@@ -244,8 +244,10 @@ def test_service_tables_lazy_and_prefetched(cls, corr):
 
 def test_service_refuses_unported_tiers_and_unknown_apps():
     _, ps = _services()
-    with pytest.raises(NotImplementedError, match="§1.9"):
-        ps.attach_synthesizer(object())
+    with pytest.raises(P.UnknownAppError, match="nearest profiled app"):
+        ps.table("GEMN")
+    # a cold-start tier covers only the apps registered with it
+    ps.attach_synthesizer(P.ColdStartSynthesizer())
     with pytest.raises(P.UnknownAppError, match="nearest profiled app"):
         ps.table("GEMN")
 

@@ -402,3 +402,169 @@ def test_layered_run_equals_cpu():
     assert [j.job_id for j in a.shed] == [j.job_id for j in b.shed]
     assert a.shed_count > 0
     assert k_all > 0 and k_one > 0 and c_all == c_one == 0
+
+
+# ---------------------------------------------------------------------- #
+#  Cold start, federation and model-derived apps on the card
+# ---------------------------------------------------------------------- #
+_GOLDEN_CACHE: dict = {}
+
+
+def _golden_fixture(dev):
+    """tests/test_golden.py's fixture, its predictor on ``dev``."""
+    import repro_torch.core as core
+    from repro_torch.configs.paper_suite import PAPER_APPS
+    from repro_torch.core.gbdt import GBDTParams
+    key = str(dev)
+    if key not in _GOLDEN_CACHE:
+        apps = list(PAPER_APPS)
+        tb = core.Testbed(seed=0)
+        X, yp, yt, _ = core.build_dataset(apps, tb, seed=0)
+        rng = np.random.default_rng(7)
+        feats = {a.name: core.profile_features(a, tb, rng=rng) for a in apps}
+        g = dict(iterations=80, depth=3, learning_rate=0.15)
+        cfg = core.PredictorConfig(gbdt=GBDTParams(l2_leaf_reg=5.0, **g),
+                                   gbdt_time=GBDTParams(l2_leaf_reg=3.0, **g))
+        _GOLDEN_CACHE[key] = dict(
+            apps=apps, tb=tb, feats=feats,
+            pred=core.EnergyTimePredictor(cfg, device=dev).fit(X, yp, yt))
+    return _GOLDEN_CACHE[key]
+
+
+#: the paper corpus, and the cold-start golden run's profiled corpus (every
+#: paper app but the last four)
+KMEANS_CORPORA = {"paper": 12, "coldstart-profiled": 8}
+
+
+@pytest.mark.parametrize("tf32", [False, True], ids=["tf32-off", "tf32-on"])
+@pytest.mark.parametrize("corpus", sorted(KMEANS_CORPORA))
+def test_kmeans_card_equals_cpu(corpus, tf32):
+    """The Lloyd sweep gives the same labels, centres and SSE on the card
+    as on the CPU, bit for bit, whatever the global TF32 switch says; the
+    correlation table (the cold-start neighbour map) follows."""
+    from repro_torch.core import CorrelationIndex
+    from repro_torch.core.kmeans import KMeans, choose_k_elbow
+    dev = _card()
+    f = _golden_fixture(torch.device("cpu"))
+    names = [a.name for a in f["apps"]][:KMEANS_CORPORA[corpus]]
+    F = np.stack([f["feats"][n] for n in names])
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        for k in (2, 3, 5, min(8, len(names))):
+            a = KMeans(k=k, device=dev).fit(F)
+            b = KMeans(k=k, device="cpu").fit(F)
+            np.testing.assert_array_equal(a.labels_, b.labels_)
+            np.testing.assert_array_equal(a.centers_, b.centers_)
+            assert a.sse_ == b.sse_
+        assert choose_k_elbow(F, device=dev) == choose_k_elbow(F,
+                                                               device="cpu")
+        for k in (5, None):
+            ta = CorrelationIndex(k=k, device=dev).fit(names, F).table()
+            tb = CorrelationIndex(k=k, device="cpu").fit(names, F).table()
+            assert [(n, int(lab), c) for n, lab, c in ta] == \
+                [(n, int(lab), c) for n, lab, c in tb]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_synthesized_and_derived_tables_equal_cpu():
+    """Synthesized ladders (κ from the card's neighbour map) and the
+    model-derived apps' predicted ladders (through the kernel) equal the
+    CPU service's bit for bit on every device class."""
+    import dataclasses
+
+    import repro_torch.core as core
+    dev = _card()
+    tabs = {}
+    for d in (dev, torch.device("cpu")):
+        f = _golden_fixture(d)
+        held = {a.name for a in f["apps"][-4:]}
+        svc = core.PredictionService(
+            f["tb"].dvfs, f["pred"],
+            {n: v for n, v in f["feats"].items() if n not in held},
+            testbed=f["tb"], device=d)
+        synth = core.ColdStartSynthesizer()
+        svc.attach_synthesizer(synth)
+        core.register_model_apps(svc, f["tb"])
+        novel = [dataclasses.replace(a, name=f"novel-{a.name}")
+                 for a in f["apps"]]
+        before = gp.launches
+        out = []
+        for app in novel + list(core.model_app_suite()):
+            svc.note_app(app)
+            for cls in (None, core.V5P_CLASS, core.V5LITE_CLASS):
+                t = svc.table(app.name, cls)
+                out.append((app.name, t.source, t.P.tobytes(),
+                            t.T.tobytes()))
+        tabs[d.type] = (out, [synth.neighbor(a.name) for a in novel],
+                        gp.launches - before)
+    (a, na, k), (b, nb, c) = tabs["cuda"], tabs["cpu"]
+    assert a == b and na == nb
+    assert {s for _, s, _, _ in a} == {"synthesized", "predicted"}
+    assert k > 0 and c == 0
+
+
+@pytest.mark.parametrize("key", ["min-energy|coldstart|0",
+                                 "min-energy|federation|0",
+                                 "min-energy|models|0"])
+def test_new_golden_digests_on_card(key):
+    """The cold-start, federation and model-derived golden traces with the
+    predictor and every table on the card, built as tests/test_golden.py
+    builds them."""
+    import hashlib
+    import json
+    import pathlib
+
+    import repro_torch.core as core
+    dev = _card()
+    f = _golden_fixture(dev)
+    apps, tb = f["apps"], f["tb"]
+    kw = dict(predictor=f["pred"], device=dev)
+    before = gp.launches
+    if key == "min-energy|coldstart|0":
+        held = {a.name for a in apps[-4:]}
+        res = core.run_schedule(
+            core.make_workload(apps, tb, seed=0), "min-energy",
+            core.Testbed(seed=100),
+            app_features={n: v for n, v in f["feats"].items()
+                          if n not in held},
+            coldstart=core.ColdStartSynthesizer(), **kw)
+    elif key == "min-energy|federation|0":
+        jobs = list(core.multi_rack_workload(apps, tb, n_devices=4,
+                                             n_jobs=16, seed=0,
+                                             utilization=0.7))
+        res = core.run_schedule(
+            jobs, "min-energy", core.Testbed(seed=100),
+            app_features=f["feats"], n_devices=4,
+            power_coordinator=core.FacilityCoordinator(
+                375.0, (2, 2), share_policy="demand-weighted",
+                escalation=True, guard=0.2),
+            preemption=core.FederatedPreemptionManager(
+                (2, 2), dvfs=tb.dvfs, device_slowdown={0: 3.0}), **kw)
+    else:
+        suite = core.model_app_suite()
+        feats = dict(f["feats"])
+        feats.update(core.register_model_apps(None, tb))
+        pool = [core.V5P_CLASS, core.V5E_CLASS]
+        jobs = core.merge_workloads(
+            core.serving_workload(suite, tb, n_jobs=14, seed=0,
+                                  n_devices=2, pool=pool),
+            core.training_workload(suite, tb, n_jobs=4, seed=1,
+                                   n_devices=2, pool=pool))
+        res = core.run_schedule(jobs, "min-energy", core.Testbed(seed=100),
+                                app_features=feats, n_devices=2,
+                                device_classes=pool, **kw)
+
+    def rnd(x):
+        return float(f"{x:.12g}")
+
+    trace = [[r.job_id, r.name, r.device, r.clock.core_mhz, r.clock.mem_mhz,
+              rnd(r.start), rnd(r.end), rnd(r.time_s), rnd(r.power_w),
+              rnd(r.energy_j), int(r.met_deadline),
+              int(r.had_feasible_clock)] for r in res.records]
+    digest = hashlib.sha256(json.dumps(
+        trace, separators=(",", ":"), sort_keys=True).encode()).hexdigest()
+    path = pathlib.Path(__file__).parent / "golden" / "schedule_traces.json"
+    assert digest == json.loads(path.read_text())["traces"][key]["digest"]
+    assert gp.launches > before

@@ -39,6 +39,25 @@ def test_importing_every_port_module_leaves_jax_and_repro_out():
     assert int(out.stdout.strip()) >= 20     # every module was reached
 
 
+@pytest.mark.parametrize("package", ["repro_torch.dist",
+                                     "repro_torch.roofline"])
+def test_subpackage_imports_alone_without_jax_or_repro(package):
+    """Each subpackage imports first, in a fresh interpreter (the straggler
+    monitor's package reaches ``core`` and back through ``federation``),
+    and pulls in neither JAX nor the reference."""
+    code = (
+        "import importlib, sys\n"
+        f"mod = importlib.import_module({package!r})\n"
+        "assert mod.__all__ and all(hasattr(mod, n) for n in mod.__all__)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
 def _imported_roots(path: pathlib.Path) -> set[str]:
     roots = set()
     for node in ast.walk(ast.parse(path.read_text())):
@@ -58,9 +77,9 @@ def test_no_source_imports_jax_or_repro(path):
 
 def _entry_points():
     from repro_torch import resolve_device
-    from repro_torch.core import (EnergyTimePredictor, PredictionService,
-                                  Testbed, V5E_DVFS, legacy_run_schedule,
-                                  run_schedule)
+    from repro_torch.core import (ColdStartSynthesizer, EnergyTimePredictor,
+                                  PredictionService, Testbed, V5E_DVFS,
+                                  legacy_run_schedule, run_schedule)
     from repro_torch.core.gbdt import GBDTModel, GBDTParams, fit_gbdt
     from repro_torch.configs import get_config
     from repro_torch.configs.base import reduce_for_smoke
@@ -96,6 +115,7 @@ def _entry_points():
                                                          tokens, 2, 8),
         "make_serve_step": lambda: serve.make_serve_step(cfg),
         "make_prefill_step": lambda: serve.make_prefill_step(cfg, 8),
+        "ColdStartSynthesizer": lambda: ColdStartSynthesizer(dvfs=V5E_DVFS),
     }
 
 
@@ -106,7 +126,8 @@ def _entry_points():
                                   "model.init_cache", "model.forward",
                                   "model.prefill", "model.decode_step",
                                   "model_from_arrays", "greedy_generate",
-                                  "make_serve_step", "make_prefill_step"])
+                                  "make_serve_step", "make_prefill_step",
+                                  "ColdStartSynthesizer"])
 def test_default_device_is_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is usable")

@@ -159,9 +159,3 @@ def test_tables_built_once_per_app():
                    device=CPU)
     assert svc.stats.table_builds == len(P_APPS)
     assert svc.stats.prefetched_tables == len(P_APPS)
-
-
-@pytest.mark.parametrize("option,item", [("coldstart", "§1.9")])
-def test_unported_options_raise(option, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _port_run("min-energy", 0, **{option: object()})
