@@ -30,9 +30,12 @@ card, in phases:
    for bf16, ``simt`` for the rest) and the Mamba-1 scan kernel against
    their plain PyTorch versions on the card: the reference test sweep's
    shapes, the window and right-aligned cases, and the serving shapes,
-   each case printed with its route (fp32 2e-5; bf16 one output ulp,
-   2**-7 relative, on the SIMT route, and 2**-9 max|v| more on the wgmma
-   route, which rounds p to bf16);
+   phases 11-15's among them (Whisper's bidirectional encoder and its
+   cross-attention over 1500 frames, head dim 112, Mixtral's window of
+   4096 at 6144 tokens, the 7168-channel, 64-state scan of Zamba2's
+   Mamba-2 prefill), each case printed with its route (fp32 2e-5; bf16 one
+   output ulp, 2**-7 relative, on the SIMT route, and 2**-9 max|v| more on
+   the wgmma route, which rounds p to bf16);
 6. their per-call times at the serving shapes, beside the plain versions,
    the bound, for attention the SIMT kernel at the same shape and
    PyTorch's own SDPA as a yardstick;
@@ -68,7 +71,22 @@ card, in phases:
    serving + 30 training jobs, max-clock and min-energy). Each run must
    be live (novel apps served from synthesized tables; escalations and a
    billed cross-rack migration; decode, train steps and two
-   architectures), and K1's launches are counted per scenario.
+   architectures), and K1's launches are counted per scenario;
+11-15. the MoE, VLM, hybrid and audio families served as phase 7 serves
+   (random bf16 weights from a seed, full width, depth cut only where one
+   card cannot hold the model, each cut printed; FAMILY_PHASES):
+   Mixtral-8x22B (8 of 56 layers, 2 prompts of 6144 tokens, past its
+   4096 window), Kimi-K2 (1 dense + 1 MoE layer of 384 experts and a
+   shared expert, 16 steps), Zamba2-7B (all 81 Mamba-2 blocks, 13
+   shared-attention applications), Whisper-large-v3 (32 + 32 layers,
+   1500 stub frames, a 64-token decoder prompt), InternVL2-76B (24 of 80
+   layers, 256 stub vision embeddings + 1792 text tokens). Every prefill
+   launches exactly the kernels its layers call, every bf16 attention
+   launch on the wgmma route; then a cuda-vs-cpu check at fp32 (2 layers,
+   Whisper 2 + 2, Zamba2 7 for one application and a tail, one 128-token
+   request) or, for Kimi-K2 (68 GB at fp32), the served bf16 weights
+   with fp32 activations on both devices (64 tokens, CPU_TOL), and in
+   bf16 as served, printed only (routing flips at 384 experts).
 
 Ends with a JSON line of per-kernel numbers, the card line, and
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
@@ -138,6 +156,38 @@ SCAN_SWEEP = ((1, 16, 8, 4), (2, 64, 32, 16), (1, 40, 24, 8), (2, 33, 20, 8))
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
 SERVE_ATTN = (SERVE_BATCH, SERVE_PROMPT, 32, 8, 128)
 SERVE_SCAN = (SERVE_BATCH, SERVE_PROMPT, 8192, 16)
+#: phases 11-15's new attention shapes, bf16 (the wgmma route): name,
+#: (B, Sq, Hq, Hkv, hd), Sk (None: = Sq), options
+FAMILY_ATTN = (
+    ("whisper encoder", (4, 1500, 20, 20, 64), None, {"causal": False}),
+    ("whisper cross", (4, 64, 20, 20, 64), 1500, {"causal": False}),
+    ("whisper decoder", (4, 64, 20, 20, 64), None, {}),
+    ("zamba2", (4, 2048, 32, 32, 112), None, {}),
+    ("kimi-k2", (4, 2048, 64, 8, 112), None, {}),
+    ("internvl2", (4, 2048, 64, 8, 128), None, {}),
+    ("mixtral window", (2, 6144, 48, 8, 128), None, {"window": 4096}),
+)
+#: ... and zamba2-7b's Mamba-2 prefill as a Mamba-1 scan (B, L, Di, N)
+FAMILY_SCAN = (4, 2048, 7168, 64)
+#: phases 11-15: the MoE, VLM, hybrid and audio families at full width,
+#: depth cut only where one card cannot hold the model (bf16 weights: 262,
+#: 1913 and 131 GiB whole for Mixtral, Kimi-K2 and InternVL2). Each entry:
+#: config, {kernel: launches in one prefill}, _serve's options (the depth,
+#: the traffic, and the cuda-vs-cpu check's config changes)
+FAMILY_PHASES = {
+    11: ("mixtral-8x22b", {"fa": 8},
+         dict(layers={"n_layers": 8}, batch=2, prompt=6144)),
+    12: ("kimi-k2-1t-a32b", {"fa": 2},
+         dict(layers={"n_layers": 2}, steps=16,
+              check={"served": True, "prompt": 64})),
+    13: ("zamba2-7b", {"fa": 13, "ms": 81},
+         # 7 blocks keep one shared-attention application and a tail
+         dict(check={"n_layers": 7})),
+    14: ("whisper-large-v3", {"fa": 96},
+         dict(prompt=64, check={"n_encoder_layers": 2})),
+    15: ("internvl2-76b", {"fa": 24},
+         dict(layers={"n_layers": 24}, prompt=2048 - 256)),
+}
 #: the golden traces of the beyond-paper layers (tests/test_golden.py)
 LAYER_KEYS = ("min-energy|cap|0", "min-energy|preempt-fire|0",
               "min-energy|preempt-decline|0", "min-energy|tenant-shed|0",
@@ -809,13 +859,24 @@ def _scan_inputs(seed, B, L, Di, N, dev):
             torch.linspace(0.5, 1.5, Di, device=dev)]
 
 
-def _attn_bound_ms(B, Sq, Sk, Hq, Hkv, hd, itemsize) -> tuple[float, str]:
-    """Least time for one causal call: q, k, v read and out written once
-    at HBM rate, or the two products over the live (query, key) pairs
-    (4 hd operations each) at the bf16 tensor-core rate."""
-    off = Sk - Sq
-    live = sum(min(Sk, max(0, i + off + 1)) for i in range(Sq))
-    ops = 4 * hd * B * Hq * live
+def _live_pairs(Sq, Sk, causal=True, window=None) -> int:
+    """(query, key) pairs the mask keeps, queries right-aligned: row i sits
+    at position i + Sk - Sq."""
+    live = 0
+    for i in range(Sq):
+        pos = i + Sk - Sq
+        hi = min(Sk, pos + 1) if causal else Sk
+        lo = max(0, pos - window + 1) if window else 0
+        live += max(0, hi - lo)
+    return live
+
+
+def _attn_bound_ms(B, Sq, Sk, Hq, Hkv, hd, itemsize, causal=True,
+                   window=None) -> tuple[float, str]:
+    """Least time for one call: q, k, v read and out written once at HBM
+    rate, or the two products over the live (query, key) pairs (4 hd
+    operations each) at the bf16 tensor-core rate."""
+    ops = 4 * hd * B * Hq * _live_pairs(Sq, Sk, causal, window)
     nbytes = itemsize * (2 * B * Sq * Hq * hd + 2 * B * Sk * Hkv * hd)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -881,21 +942,36 @@ def _kernels_vs_plain(dev, fa, ops, ref) -> dict:
     print(f"   attention serving shape B={B} S={S} Hq={Hq} Hkv={Hkv} "
           f"hd={hd} bf16 [{route}]: {attn_err:.3e} (atol {tol[0]:.3e}); "
           f"sweep cases by route {routes}", flush=True)
-    for shape in SCAN_SWEEP + (SERVE_SCAN,):
+    family_errs = {}
+    for name, (B, Sq, Hq, Hkv, hd), Sk, kw in FAMILY_ATTN:
+        q, k, v = _attn_inputs(5, B, Sq, Hq, Hkv, hd, torch.bfloat16, dev, Sk)
+        route, err, tol = _attention_case(fa, ops, ref, q, k, v, kw,
+                                          f"attention, {name}")
+        _check(route == "wgmma", f"{name} took the {route} route")
+        family_errs[name] = err
+        print(f"   attention {name}: B={B} Sq={Sq} Sk={Sk or Sq} Hq={Hq} "
+              f"Hkv={Hkv} hd={hd} {kw} bf16 [{route}]: {err:.3e} (atol "
+              f"{tol[0]:.3e})", flush=True)
+        del q, k, v
+    errs = {}
+    for shape in SCAN_SWEEP + (FAMILY_SCAN, SERVE_SCAN):
         args = _scan_inputs(3, *shape, dev)
         y, h = ops.mamba_scan(*args)
         wy, wh = ref.mamba_scan_ref(*args)
         torch.cuda.synchronize()
-        err = _close(y, wy, F32_TOL, f"scan y {shape}")
+        errs[shape] = _close(y, wy, F32_TOL, f"scan y {shape}")
         herr = _close(h, wh, F32_TOL, f"scan h_last {shape}")
-        print(f"   scan B,L,Di,N={shape}: y {err:.3e}, h_last {herr:.3e}",
-              flush=True)
+        print(f"   scan B,L,Di,N={shape}: y {errs[shape]:.3e}, h_last "
+              f"{herr:.3e}", flush=True)
+        del y, h, wy, wh
     return {"attn_inputs": qkv, "attn_err": attn_err, "scan_inputs": args,
-            "scan_err": err}
+            "scan_err": errs[SERVE_SCAN], "family_attn_err": family_errs,
+            "family_scan_err": errs[FAMILY_SCAN]}
 
 
-def _kernel_times(fa, ops, ref, p5, card) -> dict:
-    """Phase 6: per-call times at the serving shapes (CUDA events)."""
+def _kernel_times(fa, ops, ref, p5, card, dev) -> dict:
+    """Phase 6: per-call times at the serving shapes (CUDA events), and at
+    phases 11-15's new shapes."""
     q, k, v = p5["attn_inputs"]
     B, S, Hq, hd = q.shape
     Hkv = k.shape[2]
@@ -932,16 +1008,56 @@ def _kernel_times(fa, ops, ref, p5, card) -> dict:
           f"{args[2].shape[1]} fp32: kernel {s_ms:.6f}  plain "
           f"{s_plain:.6f}  bound {s_bound:.6f} ({s_by})  kernel/bound "
           f"{s_ms / s_bound:.1f}  kernel at B=1 {s_one:.6f}", flush=True)
+    family_attn = []
+    for name, (B, Sq, Hq, Hkv, hd), Sk, kw in FAMILY_ATTN:
+        q, k, v = _attn_inputs(5, B, Sq, Hq, Hkv, hd, torch.bfloat16, dev, Sk)
+        Sk = Sk or Sq
+        ms_ = _time_cuda(lambda: ops.flash_attention(q, k, v, **kw), 10)
+        plain = _time_cuda(lambda: _plain_attn(ref, q, k, v, **kw), 2)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = None
+        if "window" in kw:   # SDPA has no window: its boolean mask
+            qi = torch.arange(Sq, device=dev)[:, None] + Sk - Sq
+            kj = torch.arange(Sk, device=dev)[None, :]
+            mask = (kj <= qi) & (kj > qi - kw["window"])
+        causal = kw.get("causal", True) and mask is None
+        lib = _time_cuda(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal, enable_gqa=True),
+            10)
+        bound, by = _attn_bound_ms(B, Sq, Sk, Hq, Hkv, hd, 2,
+                                   kw.get("causal", True), kw.get("window"))
+        family_attn.append(dict(
+            name=name, shape=[B, Sq, Sk, Hq, Hkv, hd], options=kw, ms=ms_,
+            plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+            max_abs_err=p5["family_attn_err"][name]))
+        print(f"   flash_attention {name} B={B} Sq={Sq} Sk={Sk} Hq={Hq} "
+              f"Hkv={Hkv} hd={hd} {kw} bf16: kernel (wgmma) {ms_:.6f}  "
+              f"plain {plain:.6f}  sdpa {lib:.6f}  bound {bound:.6f} ({by})"
+              f"  kernel/bound {ms_ / bound:.1f}  kernel/sdpa "
+              f"{ms_ / lib:.2f}", flush=True)
+        del q, k, v, qt, kt, vt
+    args = _scan_inputs(3, *FAMILY_SCAN, dev)
+    f_ms = _time_cuda(lambda: ops.mamba_scan(*args), 10)
+    f_plain = _time_cuda(lambda: ref.mamba_scan_ref(*args), 1)
+    f_bound, f_by = _scan_bound_ms(*FAMILY_SCAN)
+    print(f"   mamba_scan B,L,Di,N={FAMILY_SCAN} fp32 (zamba2-7b's Mamba-2 "
+          f"prefill): kernel {f_ms:.6f}  plain {f_plain:.6f}  bound "
+          f"{f_bound:.6f} ({f_by})  kernel/bound {f_ms / f_bound:.1f}",
+          flush=True)
+    family_scan = dict(shape=list(FAMILY_SCAN), ms=f_ms, plain_ms=f_plain,
+                       library_ms=None, bound_ms=f_bound, bound_by=f_by,
+                       max_abs_err=p5["family_scan_err"])
     return {"flash_attention": dict(ms=a_ms, plain_ms=a_plain,
                                     library_ms=a_lib, bound_ms=a_bound,
-                                    bound_by=a_by, simt_ms=a_simt),
+                                    bound_by=a_by, simt_ms=a_simt,
+                                    family_shapes=family_attn),
             "mamba_scan": dict(ms=s_ms, plain_ms=s_plain, library_ms=None,
                                bound_ms=s_bound, bound_by=s_by,
-                               ms_batch1=s_one)}
+                               ms_batch1=s_one, family_shapes=[family_scan])}
 
 
 def _bf16_attention_check(cfg, fa, ops, ref, dev) -> float:
-    """Phase 7: a 2-layer, full-width bf16 prefill of one serving-length
+    """Phase 7's end: a 2-layer, full-width bf16 prefill of one serving-length
     prompt as the package runs it, then again with ``ops.flash_attention``
     swapped for the plain version (here in the harness only). Logits within
     BF16_MODEL_TOL and the same next token. Returns the max abs error."""
@@ -981,17 +1097,39 @@ def _bf16_attention_check(cfg, fa, ops, ref, dev) -> float:
     return err
 
 
-def _serve(arch: str, kernel, counters, dev, phase: int) -> dict:
-    """Phases 7 and 8: serve one model at full width and depth, then hold
-    the port on the card to the port on the CPU. Returns the launch counts
-    of greedy_generate's run, by kernel (and by route for attention)."""
+def _gib(module) -> float:
+    return sum(p.numel() * p.element_size()
+               for p in module.parameters()) / 2 ** 30
+
+
+def _free():
+    """Return the card's cached blocks after the caller dropped its
+    references."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _serve(arch: str, per_prefill: dict, counters, dev, phase: int, *,
+           layers=None, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+           steps=SERVE_STEPS, check=None) -> dict:
+    """Phases 7, 8 and 11-15: serve one model at full width (depth cut to
+    ``layers`` where one card cannot hold it), then hold the port on the
+    card to the port on the CPU (:func:`_cpu_check`, with ``check``'s
+    config changes). ``per_prefill`` maps each kernel module of the path to
+    its launches in one prefill, which greedy_generate's run must show
+    exactly; every bf16 attention launch must take the wgmma route.
+    Returns the launch counts of greedy_generate's run, by kernel (and by
+    route for attention)."""
     from repro_torch.configs import get_config
-    from repro_torch.convert import model_arrays, model_from_arrays
     from repro_torch.models import model
     from repro_torch.train import serve
     cfg = get_config(arch)
-    B, S, steps = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
-    max_seq = S + steps + 1
+    full = cfg
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, **layers)
+    B, S = batch, prompt
+    V = cfg.vision_tokens if cfg.family == "vlm" else 0
+    max_seq = V + S + steps + 1
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -999,28 +1137,34 @@ def _serve(arch: str, kernel, counters, dev, phase: int) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
-    prompt = np.random.default_rng(12).integers(
+    tokens = np.random.default_rng(12).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)
+    extra = model.extra_inputs(cfg, B, S, "prefill",
+                               torch.Generator(device=dev).manual_seed(4),
+                               device=dev)
+    positions = B * (V + S + (cfg.encoder_seq if cfg.family == "audio"
+                              else 0))
     prefill = serve.make_prefill_step(cfg, max_seq, device=dev)
     step = serve.make_serve_step(cfg, device=dev)
-    logits, cache = prefill(params, prompt)              # warm-up
-    _check(tuple(logits.shape) == (B, S, cfg.vocab_size)
+    logits, cache = prefill(params, tokens, extra)       # warm-up
+    _check(tuple(logits.shape) == (B, V + S, cfg.vocab_size)
            and bool(torch.isfinite(logits).all()),
            f"{arch}: prefill logits finite, of shape (B, S, vocab)")
     del logits, cache
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, prompt)
+    logits, cache = prefill(params, tokens, extra)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
     toks = [tok]
     del logits
-    prefill_profile = _device_breakdown(lambda: prefill(params, prompt))
+    prefill_profile = _device_breakdown(lambda: prefill(params, tokens,
+                                                        extra))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(steps):
-        logits, cache = step(params, cache, tok, S + i)
+        logits, cache = step(params, cache, tok, V + S + i)
         tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
         toks.append(tok)
     torch.cuda.synchronize()
@@ -1028,8 +1172,8 @@ def _serve(arch: str, kernel, counters, dev, phase: int) -> dict:
     _check(bool(torch.isfinite(logits).all()), f"{arch}: decode logits")
     del logits
     try:   # the card's own time for one step: captured once, replayed
-        step_dev_ms = _time_graph(lambda: step(params, cache, tok, S + steps),
-                                  1)
+        step_dev_ms = _time_graph(
+            lambda: step(params, cache, tok, V + S + steps), 1)
     except RuntimeError as exc:  # a refused capture costs the number only
         step_dev_ms = None
         print(f"   decode step CUDA-graph capture refused: {exc}")
@@ -1037,29 +1181,40 @@ def _serve(arch: str, kernel, counters, dev, phase: int) -> dict:
 
     _reset(counters)                                     # the main path
     t0 = time.perf_counter()
-    out = serve.greedy_generate(cfg, params, prompt, steps + 1, max_seq,
-                                device=dev)
+    out = serve.greedy_generate(cfg, params, tokens, steps + 1, max_seq,
+                                extra=extra, device=dev)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in counters}
     by_route = {m.__name__.rsplit(".", 1)[-1]: dict(m.route_launches)
                 for m in counters if hasattr(m, "route_launches")}
     launches["by_route"] = by_route
-    _check(kernel.launches > 0, f"{arch}: greedy_generate never launched "
-           f"{kernel.__name__}")
-    if hasattr(kernel, "route_launches"):   # bf16 serving: all on wgmma
-        _check(kernel.route_launches["wgmma"] == kernel.launches,
-               f"{arch}: attention launches by route {by_route}")
+    for kernel, n in per_prefill.items():
+        _check(kernel.launches == n, f"{arch}: greedy_generate launched "
+               f"{kernel.__name__} {kernel.launches} times, one prefill "
+               f"has {n}")
+        if hasattr(kernel, "route_launches"):   # bf16 serving: all wgmma
+            _check(kernel.route_launches["wgmma"] == kernel.launches,
+                   f"{arch}: attention launches by route {by_route}")
     _check(tuple(out.shape) == (B, steps + 1) and out.dtype == torch.int32
            and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
            f"{arch}: generated tokens")
     same = bool(torch.equal(out, torch.cat(toks, dim=1)))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cut = ("" if cfg.n_layers == full.n_layers else
+           f", depth cut from {full.n_layers} (one card holds "
+           f"{_gib(params):.1f} of {full.param_count() * 2 / 2 ** 30:.0f} "
+           f"GiB)")
+    what = f"{B} prompts x {S} tokens" + (
+        f" after {V} vision embeddings" if V else "") + (
+        f" over {cfg.encoder_seq} stub frames each" if
+        cfg.family == "audio" else "")
     print(f"== phase {phase}: {arch} ({n_params / 1e9:.3f} B params, "
-          f"{cfg.param_dtype}, {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}) on {dev}: init {init_s:.2f} s; {B} prompts x {S} "
-          f"tokens, prefill {prefill_s:.4f} s = {B * S / prefill_s:.1f} "
-          f"tokens/s; {steps} decode steps {decode_s:.4f} s = "
+          f"param_count() {cfg.param_count() / 1e9:.3f} B, "
+          f"{_gib(params):.2f} GiB, {cfg.param_dtype}, {cfg.n_layers} "
+          f"layers{cut}, d_model {cfg.d_model}) on {dev}: init {init_s:.2f} "
+          f"s; {what}, prefill {prefill_s:.4f} s = {positions / prefill_s:.1f}"
+          f" positions/s; {steps} decode steps {decode_s:.4f} s = "
           f"{B * steps / decode_s:.2f} tokens/s (host clock, synchronized);"
           f" one decode step on the card alone (CUDA graph replay) "
           f"{_fmt_ms(step_dev_ms)} ms of {decode_s / steps * 1e3:.3f} ms;"
@@ -1067,36 +1222,127 @@ def _serve(arch: str, kernel, counters, dev, phase: int) -> dict:
           f"launches {launches}, tokens equal to the timed loop's: {same}; "
           f"peak device memory {peak:.2f} GiB", flush=True)
     print(f"   one prefill by kernel: {prefill_profile}", flush=True)
-    del params, out, toks, tok
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    cfg2 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
-                               activation_dtype="float32")
-    p_cuda = model.init(cfg2, torch.Generator(device=dev).manual_seed(1),
-                        device=dev)
-    p_cpu = model_from_arrays(cfg2, model_arrays(p_cuda), device="cpu")
-    req = np.random.default_rng(13).integers(0, cfg.vocab_size, (1, 128))
-    errs = []
-    la, ca = model.prefill(cfg2, p_cuda, req, 160, cache_dtype=torch.float32,
-                           device=dev)
-    lb, cb = model.prefill(cfg2, p_cpu, req, 160, cache_dtype=torch.float32,
-                           device="cpu")
-    errs.append(_close(la.cpu(), lb, CPU_TOL, f"{arch}: prefill cuda vs cpu"))
-    nxt = lb[:, -1:].argmax(dim=-1)
-    da, _ = model.decode_step(cfg2, p_cuda, ca, nxt, 128, device=dev)
-    db, _ = model.decode_step(cfg2, p_cpu, cb, nxt, 128, device="cpu")
-    errs.append(_close(da.cpu(), db, CPU_TOL, f"{arch}: decode cuda vs cpu"))
-    print(f"   {arch} fp32, 2 layers, full width, one 128-token request: "
-          f"cuda vs cpu logits max abs err prefill {errs[0]:.3e}, decode "
-          f"{errs[1]:.3e} (tol {CPU_TOL}; TF32 off)", flush=True)
-    del p_cuda, p_cpu, la, lb, ca, cb, da, db
-    gc.collect()
-    torch.cuda.empty_cache()
-    if hasattr(kernel, "route_launches"):
-        from repro_torch.kernels import ops, ref
-        _bf16_attention_check(cfg, kernel, ops, ref, dev)
+    del out, toks, tok
+    check = dict(check or {})
+    served = params if check.pop("served", False) else None
+    del params
+    _free()
+    _cpu_check(cfg, dev, served, **check)
     return launches
+
+
+def _routed_prefill(cfg, params, req, max_seq, dev):
+    """A bf16 prefill of the one request ``req`` as served, each MoE
+    layer's routing recorded here in the harness. Returns the logits on the
+    CPU and, stacked over the MoE layers, (S, E) booleans: the top-k
+    experts of each token, and those of them that their expert's capacity
+    kept (slots go to tokens in order, the reference's stable sort)."""
+    from repro_torch.models import model
+    from repro_torch.models import moe as moe_mod
+    routed, kept = [], []
+    inner = moe_mod.moe
+
+    def recording(p, x, c):
+        S, E = x.shape[1], c.n_experts
+        top_i = torch.topk(torch.softmax(x[0].float() @ p.router, dim=-1),
+                           c.top_k, dim=-1).indices
+        m = torch.zeros(S, E, dtype=torch.bool, device=x.device)
+        m.scatter_(1, top_i, True)
+        earlier = m.long().cumsum(0) - m.long()     # earlier tokens per expert
+        routed.append(m.cpu())
+        kept.append((m & (earlier < moe_mod.capacity(c, S))).cpu())
+        return inner(p, x, c)
+
+    moe_mod.moe = recording
+    try:
+        logits, _ = model.prefill(cfg, params, req, max_seq, device=dev)
+    finally:
+        moe_mod.moe = inner
+    _check(len(routed) > 0, f"{cfg.name}: the prefill ran no MoE layer")
+    return logits.cpu(), torch.stack(routed), torch.stack(kept)
+
+
+def _cpu_check(cfg, dev, served=None, prompt: int = 128,
+               **changes) -> None:
+    """One ``prompt``-token request prefilled and one step decoded on the
+    card and on the CPU, logits within CPU_TOL: the model at fp32, 2
+    layers (or ``changes``), full width; or, given the ``served`` model
+    (for Kimi-K2, whose MoE layer is 68 GB at fp32), its bf16 weights
+    copied to the CPU as they are and run with fp32 activations on both
+    devices (each product casts its weight exactly). The served model is
+    then also compared in bf16 as served: a bf16 router input one ulp
+    apart can move a token's 8th of 384 experts, which moves its logits by
+    O(1), so the routing of each device is the witness
+    (:func:`_routed_prefill`), and the tokens whose routing agrees on both
+    are held within 2**-4 of max |logit|."""
+    from repro_torch.convert import model_arrays, model_from_arrays
+    from repro_torch.models import model
+    if served is None:
+        cfg2 = dataclasses.replace(cfg, **{"n_layers": 2, **changes},
+                                   param_dtype="float32",
+                                   activation_dtype="float32")
+        p_cuda = model.init(cfg2, torch.Generator(device=dev).manual_seed(1),
+                            device=dev)
+        p_cpu = model_from_arrays(cfg2, model_arrays(p_cuda), device="cpu")
+    else:
+        cfg2 = dataclasses.replace(cfg, activation_dtype="float32")
+        p_cuda, p_cpu = served, type(served)(cfg, "cpu")
+        p_cpu.load_state_dict(served.state_dict())
+    req = np.random.default_rng(13).integers(0, cfg.vocab_size, (1, prompt))
+    extra = model.extra_inputs(cfg2, 1, prompt, "prefill",
+                               torch.Generator(device=dev).manual_seed(5),
+                               device=dev)
+    V = cfg2.vision_tokens if cfg2.family == "vlm" else 0
+    max_seq = V + prompt + 32
+    errs = []
+    la, ca = model.prefill(cfg2, p_cuda, req, max_seq, extra,
+                           cache_dtype=torch.float32, device=dev)
+    lb, cb = model.prefill(cfg2, p_cpu, req, max_seq,
+                           {k: v.cpu() for k, v in extra.items()},
+                           cache_dtype=torch.float32, device="cpu")
+    errs.append(_close(la.cpu(), lb, CPU_TOL,
+                       f"{cfg.name}: prefill cuda vs cpu"))
+    nxt = lb[:, -1:].argmax(dim=-1)
+    da, _ = model.decode_step(cfg2, p_cuda, ca, nxt, V + prompt, device=dev)
+    db, _ = model.decode_step(cfg2, p_cpu, cb, nxt, V + prompt, device="cpu")
+    errs.append(_close(da.cpu(), db, CPU_TOL,
+                       f"{cfg.name}: decode cuda vs cpu"))
+    del la, lb, ca, cb, da, db
+    _free()
+    depth = (f"{cfg2.n_encoder_layers} + {cfg2.n_layers}"
+             if cfg2.family == "audio" else f"{cfg2.n_layers}")
+    what = ("its served bf16 weights with fp32 activations" if served
+            is not None else "fp32")
+    after = f" after {V} vision embeddings" if V else ""
+    print(f"   {cfg.name} {what}, {depth} layers, full width, one "
+          f"{prompt}-token request{after}: cuda vs cpu logits max abs err "
+          f"prefill {errs[0]:.3e}, decode {errs[1]:.3e} (tol {CPU_TOL}; "
+          f"TF32 off)", flush=True)
+    if served is not None:
+        ba, ra, ka = _routed_prefill(cfg, p_cuda, req, max_seq, dev)
+        bb, rb, kb = _routed_prefill(cfg, p_cpu, req, max_seq, "cpu")
+        flipped = (ra != rb).any(-1).any(0)              # (S,) top-k sets
+        moved = flipped | (ka != kb).any(-1).any(0)      # ... or kept sets
+        held = ~moved
+        _check(int(held.sum()) >= prompt // 2,
+               f"{cfg.name}: routing agrees for {int(held.sum())} of "
+               f"{prompt} tokens, fewer than half to hold")
+        tol = 2.0 ** -4 * float(bb.abs().max())
+        err = float((ba - bb)[0, held].abs().max())
+        _check(err <= tol, f"{cfg.name}: bf16 cuda vs cpu at the "
+               f"{int(held.sum())} tokens whose routing agrees: max abs "
+               f"err {err:.3e} > {tol:.3e}")
+        agree = float((ba.argmax(-1) == bb.argmax(-1)).float().mean())
+        print(f"   ... in bf16 as served: top-{cfg.top_k} expert sets differ"
+              f" for {int(flipped.sum())} of {prompt} tokens, kept sets "
+              f"(capacity) for {int(moved.sum())}; the other "
+              f"{int(held.sum())}: max abs err {err:.3e} (tol 2**-4 max "
+              f"|logit| = {tol:.3e}); all tokens: max abs err "
+              f"{float((ba - bb).abs().max()):.3e}, next token equal at "
+              f"{agree:.3f} of positions (not held)", flush=True)
+        del ba, bb
+    del p_cuda, p_cpu
+    _free()
 
 
 def main() -> int:
@@ -1346,12 +1592,13 @@ def main() -> int:
           "tables bitwise equal", flush=True)
 
     p5 = _kernels_vs_plain(dev, fa, ops, ref)
-    times = _kernel_times(fa, ops, ref, p5, card)
+    times = _kernel_times(fa, ops, ref, p5, card, dev)
     attn_err, scan_err = p5["attn_err"], p5["scan_err"]
     del p5
-    served = {"flash_attention": _serve("mistral-nemo-12b", fa, counters,
-                                        dev, 7),
-              "mamba_scan": _serve("falcon-mamba-7b", ms, counters, dev, 8)}
+    from repro_torch.configs import get_config
+    served = {7: _serve("mistral-nemo-12b", {fa: 40}, counters, dev, 7)}
+    _bf16_attention_check(get_config("mistral-nemo-12b"), fa, ops, ref, dev)
+    served[8] = _serve("falcon-mamba-7b", {ms: 64}, counters, dev, 8)
     layers = _layers(core, gp, ops, ref, counters, apps, tb, preds, feats,
                      dev, card)
     t0 = time.perf_counter()
@@ -1365,6 +1612,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s (host)", flush=True)
     derived = _phase10(core, gp, counters, apps, tb, preds, feats,
                        fed_preds, class_features, dev, card)
+    del preds, fed_preds, fed_pred, services, results
+    _free()
+    for phase, (arch, kernels, kw) in FAMILY_PHASES.items():
+        per_prefill = {{"fa": fa, "ms": ms}[k]: n for k, n in kernels.items()}
+        served[phase] = _serve(arch, per_prefill, counters, dev, phase, **kw)
 
     t768 = timing[768]
     rows = [{
@@ -1392,19 +1644,26 @@ def main() -> int:
         "launches_phase10_by_rows": {k: v["by_rows"]
                                      for k, v in derived.items()},
     }]
-    for name, line, err in (("flash_attention", 116, attn_err),
-                            ("mamba_scan", 72, scan_err)):
+    for name, line, err, main in (("flash_attention", 116, attn_err, 7),
+                                  ("mamba_scan", 72, scan_err, 8)):
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{name}.py:{line}",
-            "launches": served[name][name],
-            "max_abs_err": err, **times[name]})
+            "launches": served[main][name],
+            "max_abs_err": err, **times[name],
+            # greedy_generate's launches in each serving phase
+            "launches_by_phase": {str(ph): got[name]
+                                  for ph, got in served.items()
+                                  if got[name]}})
     # the main path's attention kernel; the SIMT route's beside it
     rows[1]["source"] = "src/repro_torch/csrc/flash_attention_sm90.cu"
     rows[1]["simt_source"] = "src/repro_torch/csrc/flash_attention.cu"
     rows[1]["launches_by_route"] = \
-        served["flash_attention"]["by_route"]["flash_attention"]
+        served[7]["by_route"]["flash_attention"]
+    rows[1]["launches_by_route_by_phase"] = {
+        str(ph): got["by_route"]["flash_attention"]
+        for ph, got in served.items() if got["flash_attention"]}
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -35,12 +35,13 @@ for bit — fitted trees array-equal, golden trace digests equal — where
 small torch tensors would change summation orders and add a host–device
 synchronisation to every scheduling decision.
 
-**Serving models.** :mod:`repro_torch.models` holds the dense (GQA
-transformer) and Mamba-1 families of the reference's model zoo, with the
-reference's parameter names and layouts (:mod:`repro_torch.convert`
-carries weights across), and :mod:`repro_torch.train.serve` serves them:
-prefill, then batched greedy decode. Prefill attention and the Mamba-1
-prefill scan run in hand-written CUDA kernels (``csrc/flash_attention.cu``,
+**Serving models.** :mod:`repro_torch.models` holds every family of the
+reference's model zoo (dense, MoE, VLM, Mamba-1, hybrid Mamba-2,
+encoder-decoder), with the reference's parameter names and layouts
+(:mod:`repro_torch.convert` carries weights across), and
+:mod:`repro_torch.train.serve` serves them: prefill, then batched greedy
+decode. Prefill attention and the Mamba prefill scans run in hand-written
+CUDA kernels (``csrc/flash_attention_sm90.cu``, ``csrc/flash_attention.cu``,
 ``csrc/mamba_scan.cu``); decode is plain torch, as in the reference.
 
 Entry points run on the card by default (``device="cuda"``) and raise

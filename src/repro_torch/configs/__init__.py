@@ -1,9 +1,8 @@
 """Config registry: the assigned architectures and the paper's 12-app suite
 (:mod:`.paper_suite`).
 
-The port serves the ``dense`` and ``ssm`` (Mamba-1) families; the other
-architectures load as configs, and building their model raises
-``NotImplementedError`` (see :mod:`repro_torch.models.model`)."""
+The port builds and serves every architecture here (see
+:mod:`repro_torch.models.model`)."""
 from __future__ import annotations
 
 from importlib import import_module

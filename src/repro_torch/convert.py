@@ -20,7 +20,9 @@ layers stacked on a leading axis, any float dtype, cast to
 ``cfg.param_dtype``); :func:`model_arrays` is its inverse and returns fp32
 arrays (numpy has no bf16; the cast is exact). Both packages keep a
 projection as ``(in, out)``, so every leaf is a plain copy: the tree path
-``layers/attn/wq`` of layer 3 is the parameter ``layers.3.attn.wq``.
+``layers/attn/wq`` of layer 3 is the parameter ``layers.3.attn.wq``. Every
+stacked subtree — ``layers``, and by family ``dense_layers``,
+``enc_layers`` and ``dec_layers`` — is unstacked the same way.
 """
 from __future__ import annotations
 
@@ -33,8 +35,6 @@ from .core.gbdt import GBDTModel, GBDTParams, OrderedTargetEncoder
 from .core.predictor import EnergyTimePredictor, PredictorConfig
 from .device import DEFAULT_DEVICE, resolve_device
 from .models import model as model_lib
-from .models.ssm_lm import MambaLM
-from .models.transformer import DenseLM
 
 __all__ = ["model_arrays", "model_from_arrays", "predictor_arrays",
            "predictor_from_arrays"]
@@ -117,14 +117,21 @@ def _flatten(tree, prefix=""):
             yield path, val
 
 
+def _stacks(module) -> dict:
+    """The module's stacked layer lists (``nn.ModuleList`` attributes) by
+    name."""
+    return {name: child for name, child in module.named_children()
+            if isinstance(child, torch.nn.ModuleList)}
+
+
 @torch.no_grad()
 def model_from_arrays(cfg, arrays: dict, device=DEFAULT_DEVICE):
     """The port's model for ``cfg`` on ``device``, with every parameter
     copied from ``arrays`` (the reference's parameter tree as numpy)."""
-    model_lib._family_module(cfg)          # raises for unported families
     dev = resolve_device(device)
-    module = {"dense": DenseLM, "ssm": MambaLM}[cfg.family](cfg, dev)
+    module = model_lib._family_module(cfg).LM(cfg, dev)
     params = dict(module.named_parameters())
+    depth = {name: len(stack) for name, stack in _stacks(module).items()}
     filled = set()
 
     def put(name, arr):
@@ -139,12 +146,13 @@ def model_from_arrays(cfg, arrays: dict, device=DEFAULT_DEVICE):
         filled.add(name)
 
     for path, arr in _flatten(arrays):
-        if path.startswith("layers."):
-            if len(arr) != cfg.n_layers:
+        stack, _, rest = path.partition(".")
+        if stack in depth:
+            if len(arr) != depth[stack]:
                 raise ValueError(f"{path}: {len(arr)} stacked layers, the "
-                                 f"config has {cfg.n_layers}")
-            for i in range(cfg.n_layers):
-                put(f"layers.{i}.{path[len('layers.'):]}", arr[i])
+                                 f"model has {depth[stack]} in {stack}")
+            for i in range(depth[stack]):
+                put(f"{stack}.{i}.{rest}", arr[i])
         else:
             put(path, arr)
     missing = sorted(set(params) - filled)
@@ -154,14 +162,16 @@ def model_from_arrays(cfg, arrays: dict, device=DEFAULT_DEVICE):
 
 
 def model_arrays(module) -> dict:
-    """The parameter tree of a port model as fp32 numpy arrays, the
-    repeated layers stacked on a leading axis (the reference's layout)."""
+    """The parameter tree of a port model as fp32 numpy arrays, each
+    stacked subtree's layers stacked on a leading axis (the reference's
+    layout)."""
+    stacks = _stacks(module)
     tree: dict = {}
     for name, p in module.named_parameters():
         parts = name.split(".")
         arr = p.detach().float().cpu().numpy()
-        if parts[0] == "layers":
-            node = tree.setdefault("layers", {})
+        if parts[0] in stacks:
+            node = tree.setdefault(parts[0], {})
             for key in parts[2:-1]:
                 node = node.setdefault(key, {})
             node.setdefault(parts[-1], []).append(arr)

@@ -115,6 +115,21 @@ class GBDTModel:
             imp = imp / imp.sum()
         return imp
 
+    def staged_rmse(self, X: np.ndarray, y: np.ndarray) -> np.ndarray:
+        """RMSE after each boosting stage (for iteration-count
+        diagnostics): host numpy fp64, the reference's formula, so the
+        stages equal the reference's bit for bit. (n_trees,)"""
+        X = np.asarray(X, dtype=np.float64)
+        y = np.asarray(y, dtype=np.float64)
+        depth = self.feats.shape[1]
+        bits = X[:, self.feats] > self.thresholds[None, :, :]
+        leaf_idx = bits @ (1 << np.arange(depth)).astype(np.int64)
+        contrib = np.take_along_axis(
+            self.leaves[None, :, :].repeat(X.shape[0], axis=0),
+            leaf_idx[:, :, None], axis=2)[..., 0]          # (n, n_trees)
+        err = self.base + np.cumsum(contrib, axis=1) - y[:, None]
+        return np.sqrt(np.mean(err ** 2, axis=0))
+
 
 # ---------------------------------------------------------------------- #
 #  Categorical handling: ordered target statistics (CatBoost's mechanism)

@@ -268,6 +268,8 @@ class PredictionService:
         self._true_tmin: dict[tuple, float] = {}
         self._true_tdc: dict[tuple, float] = {}
         self._classes: dict[str, DeviceClass] = {}
+        self._ladder_index: dict[
+            Optional[str], dict[ClockPair, int]] = {}
         self._class_keys: dict[str, Optional[str]] = {}
         self._seen_class_dvfs: dict[str, DVFSConfig] = {}
         self._class_clocks: dict[
@@ -424,6 +426,26 @@ class PredictionService:
         self._corrected[(name, ck)] = tab
         self.stats.corrected_builds += 1
         return tab
+
+    def power_at(self, name: str,
+                 device_class: Optional[DeviceClass] = None,
+                 clocks: Optional[Sequence[ClockPair]] = None) -> np.ndarray:
+        """Predicted power for ``(app, class)`` at ``clocks`` (default: the
+        class's full ladder), read from the table the engine's cap filter
+        reads: the first call per (app, class) builds it, every later call
+        (any clock subset, any order) indexes into it, with no predictor
+        call."""
+        tab = self.table(name, device_class)
+        if clocks is None:
+            return tab.P
+        ck = self.register_class(device_class)
+        index = self._ladder_index.get(ck)
+        if index is None:
+            index = {c: i for i, c in enumerate(self.clocks_for(ck))}
+            self._ladder_index[ck] = index
+        rows = np.fromiter((index[c] for c in clocks), dtype=np.intp,
+                           count=len(clocks))
+        return tab.P[rows]
 
     # ------------------------------------------------------------------ #
     #  Online correction layer

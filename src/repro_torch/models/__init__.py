@@ -1,2 +1,3 @@
-"""Model substrate: the dense (GQA transformer) and Mamba-1 families, served
-through :mod:`repro_torch.models.model`."""
+"""Model substrate: the dense, MoE and VLM transformers, Mamba-1, the
+Mamba-2 hybrid and the encoder-decoder, served through
+:mod:`repro_torch.models.model`."""

@@ -4,10 +4,13 @@ Layouts, as the reference's:
   q:  (B, S, Hq, hd)    k/v: (B, S, Hkv, hd)
   KV cache (decode): k/v (B, Hkv, S_max, hd), written in place at ``pos``.
 
-Full-sequence attention always goes through the flash kernel
-(:func:`repro_torch.kernels.ops.flash_attention`), with the reference's
-``attn_impl="flash"`` semantics. Single-token decode is plain torch, as
-in the reference: no kernel there.
+Full-sequence attention — causal self-attention, the bidirectional
+encoder and cross-attention over an encoder's states — always goes
+through the flash kernel (:func:`repro_torch.kernels.ops.flash_attention`),
+with the reference's ``attn_impl="flash"`` semantics, except that
+``causal=False`` is honoured (the reference's flash route ignores its
+``mask`` and turns a bidirectional encoder causal). Single-token decode is
+plain torch, as in the reference: no kernel there.
 """
 from __future__ import annotations
 
@@ -85,17 +88,70 @@ def causal_mask(Sq: int, Sk: int, window=None, offset: int = 0,
     return m[None]
 
 
-def attention(p: Attention, x, cfg, positions=None):
-    """Full-sequence attention (prefill). Returns (out, (k, v)) with k, v
-    in (B, S, Hkv, hd)."""
+def attention(p: Attention, x, cfg, positions=None, causal: bool = True):
+    """Full-sequence self-attention (prefill; the encoder with
+    ``causal=False``), RoPE at ``positions`` (default ``0 .. S-1``, for
+    the encoder too, as the reference). Returns (out, (k, v)) with k, v in
+    (B, S, Hkv, hd)."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = kops.flash_attention(q, k, v, causal=True,
+    out = kops.flash_attention(q, k, v, causal=causal,
                                window=cfg.sliding_window)
     out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
     return out @ p.wo.to(x.dtype), (k, v)
+
+
+def _project_cross(p: Attention, x, source, cfg):
+    """q from x, k/v from ``source`` (B, Sk, D): no RoPE and no bias, as
+    the reference's ``encdec._cross_attention``."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    src = source.to(x.dtype)
+    q = (x @ p.wq.to(x.dtype)).reshape(B, S, cfg.n_heads, hd)
+    k = (src @ p.wk.to(x.dtype)).reshape(B, -1, cfg.n_kv_heads, hd)
+    v = (src @ p.wv.to(x.dtype)).reshape(B, -1, cfg.n_kv_heads, hd)
+    return q, k, v
+
+
+def cross_attention(p: Attention, x, source, cfg):
+    """Every query of x over every row of ``source``: the flash kernel,
+    non-causal (the decoder's prompt over the encoder's states)."""
+    B, S, _ = x.shape
+    q, k, v = _project_cross(p, x, source, cfg)
+    out = kops.flash_attention(q, k, v, causal=False)
+    out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
+    return out @ p.wo.to(x.dtype)
+
+
+def cross_attention_decode(p: Attention, x, source, cfg):
+    """:func:`cross_attention` for one new token (x: (B, 1, D)), in plain
+    torch (:func:`_plain_gqa`)."""
+    q, k, v = _project_cross(p, x, source, cfg)
+    out = _plain_gqa(q, k.transpose(1, 2), v.transpose(1, 2))
+    return out @ p.wo.to(x.dtype)
+
+
+def _plain_gqa(q, k, v, valid=None):
+    """q (B, S, Hq, hd) over k/v (B, Hkv, Sk, hd), as the reference's
+    ``_sdpa``: products of the q-dtype values summed in fp32 (its einsums
+    with preferred_element_type=float32), probabilities rounded to q's
+    dtype. ``valid`` (Sk,) masks keys. Returns (B, S, Hq*hd) in q's dtype."""
+    B, S, Hq, hd = q.shape
+    K = k.shape[1]
+    G = Hq // K
+    # a KV head's G query heads and S rows as one (G*S, hd) block
+    qg = q.reshape(B, S, K, G, hd).permute(0, 2, 3, 1, 4).reshape(
+        B, K, G * S, hd).float()
+    kf = k.to(q.dtype).float()
+    vf = v.to(q.dtype).float()
+    scores = (qg @ kf.transpose(-1, -2)) / math.sqrt(hd)     # (B,K,G*S,Sk)
+    if valid is not None:
+        scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype).float()
+    out = (probs @ vf).to(q.dtype).reshape(B, K, G, S, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq * hd)
 
 
 def attention_decode(p: Attention, x, cache_k, cache_v, pos: int, cfg):
@@ -106,7 +162,6 @@ def attention_decode(p: Attention, x, cache_k, cache_v, pos: int, cfg):
     window and a window-sized cache the slots form a ring. Returns
     (out (B, 1, D), cache_k, cache_v)."""
     B = x.shape[0]
-    hd = cfg.resolved_head_dim
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
     S_max = cache_k.shape[2]
@@ -121,16 +176,5 @@ def attention_decode(p: Attention, x, cache_k, cache_v, pos: int, cfg):
         valid = kj <= pos
         if cfg.sliding_window is not None:
             valid = valid & (kj > pos - cfg.sliding_window)
-    # scores against the cache in its own (B, K, S, hd) layout: products of
-    # the q-dtype values, summed in fp32 (the reference's einsums with
-    # preferred_element_type=float32); probabilities rounded to q's dtype
-    K = cfg.n_kv_heads
-    G = cfg.n_heads // K
-    qg = q.reshape(B, K, G, hd).float()
-    kc = cache_k.to(q.dtype).float()
-    vc = cache_v.to(q.dtype).float()
-    scores = (qg @ kc.transpose(-1, -2)) / math.sqrt(hd)     # (B, K, G, S)
-    scores = torch.where(valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype).float()
-    out = (probs @ vc).to(x.dtype).reshape(B, 1, cfg.n_heads * hd)
+    out = _plain_gqa(q, cache_k, cache_v, valid)
     return out @ p.wo.to(x.dtype), cache_k, cache_v

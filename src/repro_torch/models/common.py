@@ -1,5 +1,5 @@
-"""Shared model building blocks: dtypes, initializers, norms, RoPE and the
-embedding tables.
+"""Shared model building blocks: dtypes, initializers, norms, RoPE,
+sinusoidal positions and the embedding tables.
 
 Parameters live in ``nn.Module``s and keep the reference's names and
 layouts: a projection is stored ``(in, out)`` and applied as ``x @ w``, so
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -58,6 +59,33 @@ def rms_norm(x, weight, eps):
     return (out * weight.float()).to(x.dtype)
 
 
+def layer_norm(x, weight, bias, eps):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm parameters as the reference's ``{"w", "b"}`` leaves."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        dt = dtype_of(cfg.param_dtype)
+        self.w = param((cfg.d_model,), dt, device)
+        self.b = param((cfg.d_model,), dt, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        self.w.fill_(1.0)
+        self.b.zero_()
+
+
+def ln(x, p: LayerNorm, eps):
+    return layer_norm(x, p.w, p.b, eps)
+
+
 # ---------------------------------------------------------------------- #
 #  Rotary position embeddings (full head dim, split-half rotation)
 # ---------------------------------------------------------------------- #
@@ -77,6 +105,19 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------- #
+#  Sinusoidal positions (Whisper encoder)
+# ---------------------------------------------------------------------- #
+def sinusoidal_positions(n_pos: int, dim: int, device=None) -> torch.Tensor:
+    """(n_pos, dim) fp32: computed in float64 numpy and rounded once, as
+    the reference computes it."""
+    pos = np.arange(n_pos)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    angle = pos / np.power(10_000, 2 * i / dim)
+    out = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return torch.from_numpy(out.astype(np.float32)).to(device)
 
 
 # ---------------------------------------------------------------------- #

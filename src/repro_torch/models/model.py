@@ -1,17 +1,22 @@
-"""Model dispatcher: one API over the families the port serves.
+"""Model dispatcher: one API over every architecture family.
 
   init(cfg, generator, device)                         → params (nn.Module)
   forward(cfg, params, tokens, extra, device)          → (logits, aux_loss)
   prefill(cfg, params, tokens, max_seq, extra, …)      → (logits, cache)
   decode_step(cfg, params, cache, tokens, pos, device) → (logits, cache)
   init_cache(cfg, batch, max_seq, dtype, device)       → cache
+  extra_inputs(cfg, batch, seq, mode, generator, …)    → modality stubs
   text_len(cfg, seq)
 
-The ``dense`` and ``ssm`` (Mamba-1) families are ported. The others (moe,
-hybrid, vlm, audio) raise ``NotImplementedError`` naming the ROADMAP item
-that ports them. Every entry point takes ``device`` (default ``"cuda"``,
-which raises where CUDA is absent; pass ``device="cpu"``), checks that the
-params live there and moves the tokens there.
+The dense, moe and vlm families are :mod:`.transformer`, ssm (Mamba-1) is
+:mod:`.ssm_lm`, hybrid (Mamba-2 with a shared attention block) is
+:mod:`.hybrid` and audio (Whisper-style encoder-decoder) is
+:mod:`.encdec`. ``extra`` carries the modality stubs: ``frames`` for
+audio (forward and prefill), ``vision_embeds`` for vlm; a key a family
+does not take raises. Every entry point takes ``device`` (default
+``"cuda"``, which raises where CUDA is absent; pass ``device="cpu"``),
+checks that the params live there and moves the tokens and the extra
+inputs there.
 """
 from __future__ import annotations
 
@@ -20,18 +25,20 @@ from typing import Optional
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
-from . import ssm_lm, transformer
+from . import encdec, hybrid, ssm_lm, transformer
+from .common import dtype_of
+
+_FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+             "ssm": ssm_lm, "hybrid": hybrid, "audio": encdec}
+#: the extra inputs each family's forward and prefill take
+_EXTRA = {"vlm": ("vision_embeds",), "audio": ("frames",)}
+
 
 def _family_module(cfg):
-    if cfg.family == "dense":
-        return transformer
-    if cfg.family == "ssm":
-        return ssm_lm
-    if cfg.family in ("moe", "hybrid", "vlm", "audio"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet (ROADMAP "
-            "§1 item 12b); the port serves the dense and ssm families")
-    raise ValueError(f"unknown family {cfg.family!r}")
+    try:
+        return _FAMILIES[cfg.family]
+    except KeyError:
+        raise ValueError(f"unknown family {cfg.family!r}") from None
 
 
 def _on(params, tokens, device):
@@ -41,6 +48,19 @@ def _on(params, tokens, device):
         raise ValueError(f"params are on {sorted(map(str, where))}, not "
                          f"on the requested device {dev}")
     return torch.as_tensor(tokens, device=dev)
+
+
+def _extra(cfg, extra, device) -> dict:
+    """The family's keyword arguments from ``extra``, on ``device``."""
+    extra = dict(extra or {})
+    takes = _EXTRA.get(cfg.family, ())
+    unknown = sorted(set(extra) - set(takes))
+    if unknown:
+        raise ValueError(f"{cfg.family} models take the extra inputs "
+                         f"{list(takes)}, got {unknown}")
+    dev = resolve_device(device)
+    return {k: None if v is None else torch.as_tensor(v, device=dev)
+            for k, v in extra.items()}
 
 
 def init(cfg, generator: "torch.Generator | None" = None,
@@ -61,6 +81,30 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
                                           resolve_device(device))
 
 
+def extra_inputs(cfg, batch: int, seq: int, mode: str = "train",
+                 generator: "torch.Generator | None" = None,
+                 device=DEFAULT_DEVICE) -> dict:
+    """Stub tensors for the modality frontends, in the activation dtype:
+    ``vision_embeds`` (batch, vision_tokens, D) for vlm, ``frames`` (batch,
+    encoder_seq, D) for audio in the train and prefill modes. Standard
+    normal draws from ``generator`` (on ``device``), or zeros without
+    one. ``seq`` is unused, as in the reference."""
+    del seq
+    dev = resolve_device(device)
+    dt = dtype_of(cfg.activation_dtype)
+
+    def stub(shape):
+        if generator is None:
+            return torch.zeros(shape, dtype=dt, device=dev)
+        return torch.randn(shape, generator=generator, device=dev).to(dt)
+    out = {}
+    if cfg.family == "vlm":
+        out["vision_embeds"] = stub((batch, cfg.vision_tokens, cfg.d_model))
+    if cfg.family == "audio" and mode in ("train", "prefill"):
+        out["frames"] = stub((batch, cfg.encoder_seq, cfg.d_model))
+    return out
+
+
 def text_len(cfg, seq: int) -> int:
     """Text-token count so total decoder sequence == seq for VLM."""
     if cfg.family == "vlm":
@@ -68,25 +112,18 @@ def text_len(cfg, seq: int) -> int:
     return seq
 
 
-def _no_extra(cfg, extra):
-    if extra:
-        raise ValueError(f"{cfg.family} models take no extra inputs, got "
-                         f"{sorted(extra)}")
-
-
 def forward(cfg, params, tokens, extra: Optional[dict] = None,
             device=DEFAULT_DEVICE):
     mod = _family_module(cfg)
-    _no_extra(cfg, extra)
-    return mod.forward(params, _on(params, tokens, device), cfg)
+    return mod.forward(params, _on(params, tokens, device), cfg,
+                       **_extra(cfg, extra, device))
 
 
 def prefill(cfg, params, tokens, max_seq: int, extra: Optional[dict] = None,
             cache_dtype=torch.bfloat16, device=DEFAULT_DEVICE):
     mod = _family_module(cfg)
-    _no_extra(cfg, extra)
     return mod.prefill(params, _on(params, tokens, device), cfg, max_seq,
-                       cache_dtype=cache_dtype)
+                       cache_dtype=cache_dtype, **_extra(cfg, extra, device))
 
 
 def decode_step(cfg, params, cache, tokens, pos: int,

@@ -1,15 +1,19 @@
-"""Mamba-1 block (falcon-mamba-7b).
+"""Mamba SSM blocks: Mamba-1 (falcon-mamba-7b) and Mamba-2 (zamba2-7b).
 
-Recurrence (diagonal A, per-channel state):
+Mamba-1 recurrence (diagonal A, per-channel state):
     h_t = exp(dt_t ⊙ A) ⊙ h_{t-1} + (dt_t ⊙ B_t) ⊗ x_t
     y_t = C_t · h_t + D ⊙ x_t
+Mamba-2 (scalar A per head, outer-product state update):
+    h_t = exp(dt_t A_h) h_{t-1} + dt_t · x_t ⊗ B_t ;  y_t = h_t C_t + D_h x_t
 
 A prompt (``state is None`` and L > 1) runs through the scan kernel
-(:func:`repro_torch.kernels.ops.mamba_scan`) on fp32 inputs, as the
-reference's ``attn_impl="flash"`` route does; decode steps run the plain
-recurrence :func:`mamba1_scan`, which streams its inputs in the activation
-dtype, as the reference's does. The Mamba-2 block (the hybrid family)
-is not ported yet.
+(:func:`repro_torch.kernels.ops.mamba_scan`) on fp32 inputs, in both
+blocks: Mamba-1 as the reference's ``attn_impl="flash"`` route does, and
+Mamba-2 as the Mamba-1 scan of its ``H * Pd`` channels with each head's dt,
+A and D repeated over the head's ``Pd`` channels (the reference runs its
+plain recurrence there). Decode steps run the plain recurrences
+:func:`mamba1_scan` and :func:`mamba2_scan`, which stream their inputs in
+the activation dtype, as the reference's do.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops as kops
-from .common import dense_init, dtype_of, param
+from .common import dense_init, dtype_of, param, rms_norm
 
 
 def _dt_rank(cfg) -> int:
@@ -67,12 +71,6 @@ class Mamba1(nn.Module):
         self.A_log.copy_(torch.log(torch.arange(
             1, N + 1, dtype=torch.float32, device=dev)).expand(Di, N))
         self.D.fill_(1.0)
-
-
-def init_mamba(cfg, generator, device) -> Mamba1:
-    m = Mamba1(cfg, device)
-    m.reset_parameters(generator)
-    return m
 
 
 # ---------------------------------------------------------------------- #
@@ -146,4 +144,109 @@ def mamba1_block(p: Mamba1, x, cfg, state=None):
         h0 = state["ssm"] if state is not None else None
         y, h_last = mamba1_scan(xs, dt, A, Bm, Cm, p.D, h0)
     y = y.to(x.dtype) * F.silu(z)
+    return y @ p.out_proj.to(x.dtype), {"conv": new_conv, "ssm": h_last}
+
+
+# ---------------------------------------------------------------------- #
+#  Mamba-2 (SSD, scalar A per head)
+# ---------------------------------------------------------------------- #
+class Mamba2(nn.Module):
+    """Parameters named as the reference's: ``in_proj`` (D, 2Di+2N+H:
+    z, x, B, C, dt), ``conv_w``/``conv_b`` over the Di+2N conv channels,
+    ``A_log``, ``dt_bias``, ``D`` (one per head, fp32 always),
+    ``norm_w`` and ``out_proj``."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        dt = dtype_of(cfg.param_dtype)
+        D, Di, N, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+        H = Di // cfg.ssm_head_dim
+        f32 = torch.float32
+        self.in_proj = param((D, 2 * Di + 2 * N + H), dt, device)
+        self.conv_w = param((Di + 2 * N, K), dt, device)
+        self.conv_b = param((Di + 2 * N,), dt, device)
+        self.A_log = param((H,), f32, device)
+        self.dt_bias = param((H,), f32, device)
+        self.D = param((H,), f32, device)
+        self.norm_w = param((Di,), dt, device)
+        self.out_proj = param((Di, D), dt, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator):
+        for w in (self.in_proj, self.out_proj):
+            w.copy_(dense_init(generator, w.shape, w.dtype, w.device))
+        self.conv_w.copy_(dense_init(generator, self.conv_w.shape,
+                                     self.conv_w.dtype, self.conv_w.device,
+                                     fan_in=self.conv_w.shape[1]))
+        self.conv_b.zero_()
+        H = self.A_log.shape[0]
+        self.A_log.copy_(torch.log(torch.linspace(
+            1.0, 16.0, H, dtype=torch.float32, device=self.A_log.device)))
+        self.dt_bias.zero_()
+        self.D.fill_(1.0)
+        self.norm_w.fill_(1.0)
+
+
+def mamba2_scan(u, dt, A, Bm, Cm, D, h0=None):
+    """Sequential Mamba-2 scan (the decode route, and the reference's
+    recurrence). u: (B, L, H, Pd); dt: (B, L, H); A, D: (H,); Bm/Cm:
+    (B, L, N); h0: (B, H, Pd, N) or None. The inputs stream in u's dtype and
+    are upcast per step; each step's ``h·C`` is rounded to u's dtype.
+    Returns (y (B, L, H, Pd) fp32, h_last (B, H, Pd, N) fp32)."""
+    Bsz, L, H, Pd = u.shape
+    N = Bm.shape[-1]
+    h = (torch.zeros((Bsz, H, Pd, N), dtype=torch.float32, device=u.device)
+         if h0 is None else h0)
+    dt_s, B_s, C_s = (t.to(u.dtype) for t in (dt, Bm, Cm))
+    ys = []
+    for t in range(L):
+        u_t, dt_t, B_t, C_t = (a[:, t].float()
+                               for a in (u, dt_s, B_s, C_s))
+        dA = torch.exp(dt_t * A[None])                       # (B, H)
+        dBu = (dt_t[..., None] * u_t)[..., None] * B_t[:, None, None, :]
+        h = dA[..., None, None] * h + dBu
+        ys.append(torch.einsum("bhpn,bn->bhp", h, C_t).to(u.dtype))
+    y = torch.stack(ys, dim=1).float() + u.float() * D[None, None, :, None]
+    return y, h
+
+
+def mamba2_block(p: Mamba2, x, cfg, state=None):
+    """x: (B, L, D). state: None, or dict(conv, ssm) for decode.
+    Returns (out, new_state).
+
+    A prompt goes through the scan kernel as a Mamba-1 scan over the
+    ``Di = H * Pd`` channels: dt rounded to the activation dtype (the
+    reference casts it to u's dtype before its scan) and repeated over each
+    head's Pd channels, ``A = -exp(A_log)`` and D likewise, every state row
+    the head's A. One rounding differs from the reference's recurrence: it
+    rounds each step's ``h·C`` to u's dtype before adding ``D⊙u``, the
+    kernel adds them in fp32. At fp32 that is no difference; in bf16 it
+    stays inside the output's last rounding (one ulp)."""
+    B, L, _ = x.shape
+    Di, N = cfg.d_inner, cfg.ssm_state
+    Pd = cfg.ssm_head_dim
+    H = Di // Pd
+    proj = x @ p.in_proj.to(x.dtype)
+    z, xBC, dt_raw = (proj[..., :Di], proj[..., Di:2 * Di + 2 * N],
+                      proj[..., 2 * Di + 2 * N:])
+    conv_state = state["conv"] if state is not None else None
+    xBC, new_conv = causal_conv1d(xBC, p.conv_w, p.conv_b, conv_state)
+    xBC = F.silu(xBC)
+    xs, Bm, Cm = xBC[..., :Di], xBC[..., Di:Di + N], xBC[..., Di + N:]
+    dt = F.softplus(dt_raw.float() + p.dt_bias[None, None])   # (B, L, H)
+    A = -torch.exp(p.A_log)
+    if state is None and L > 1:
+        dt_c = dt.to(x.dtype).float().repeat_interleave(Pd, dim=-1)
+        A_c = A.repeat_interleave(Pd)[:, None].expand(Di, N).contiguous()
+        y, h_last = kops.mamba_scan(xs.float().contiguous(), dt_c, A_c,
+                                    Bm.float().contiguous(),
+                                    Cm.float().contiguous(),
+                                    p.D.repeat_interleave(Pd))
+        h_last = h_last.reshape(B, H, Pd, N)
+    else:
+        h0 = state["ssm"] if state is not None else None
+        y, h_last = mamba2_scan(xs.reshape(B, L, H, Pd), dt, A, Bm, Cm,
+                                p.D, h0)
+    y = y.reshape(B, L, Di).to(x.dtype) * F.silu(z)
+    y = rms_norm(y, p.norm_w, cfg.norm_eps)
     return y @ p.out_proj.to(x.dtype), {"conv": new_conv, "ssm": h_last}

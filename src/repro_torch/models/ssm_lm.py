@@ -43,6 +43,9 @@ class MambaLM(nn.Module):
         self.final_norm.fill_(1.0)
 
 
+LM = MambaLM
+
+
 def init_lm(cfg, generator, device) -> MambaLM:
     m = MambaLM(cfg, device)
     m.reset_parameters(generator)

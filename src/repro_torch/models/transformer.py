@@ -1,9 +1,12 @@
-"""Decoder-only dense LM: embed → N (attention + SwiGLU) blocks → head.
+"""Decoder-only LM (dense / MoE / VLM): embed → N (attention + SwiGLU or
+MoE) blocks → head.
 
 The reference stacks its layers on a leading axis and scans over them;
-here they are an ``nn.ModuleList`` walked by a Python loop. The MoE and
-VLM families, which the reference builds in the same module, are not
-ported yet: :mod:`repro_torch.models.model` refuses them.
+here they are ``nn.ModuleList``s walked by a Python loop. The MoE family
+runs its first ``first_dense_layers`` layers as a separate dense stack
+(``dense_layers``), and sums the MoE layers' load-balance losses. The VLM
+family prepends stub patch embeddings (``vision_embeds``, (B, V, D)) to
+the text tokens' embeddings.
 """
 from __future__ import annotations
 
@@ -11,72 +14,119 @@ import torch
 from torch import nn
 
 from . import attention as attn_mod
+from . import moe as moe_mod
 from .common import (Embeddings, dtype_of, embed_tokens, param, rms_norm,
                      unembed)
 from .mlp import MLP, mlp
 
 
-class DenseLayer(nn.Module):
-    def __init__(self, cfg, device):
+class Layer(nn.Module):
+    """``attn_norm``, ``mlp_norm``, ``attn`` and either ``mlp`` or
+    ``moe``."""
+
+    def __init__(self, cfg, device, use_moe: bool = False):
         super().__init__()
         dt = dtype_of(cfg.param_dtype)
         self.attn_norm = param((cfg.d_model,), dt, device)
         self.mlp_norm = param((cfg.d_model,), dt, device)
         self.attn = attn_mod.Attention(cfg, device)
-        self.mlp = MLP(cfg, device)
+        if use_moe:
+            self.moe = moe_mod.MoE(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device)
 
     @torch.no_grad()
     def reset_parameters(self, generator):
         self.attn_norm.fill_(1.0)
         self.mlp_norm.fill_(1.0)
         self.attn.reset_parameters(generator)
-        self.mlp.reset_parameters(generator)
+        (self.moe if hasattr(self, "moe") else self.mlp).reset_parameters(
+            generator)
 
 
-class DenseLM(nn.Module):
+def _n_dense(cfg) -> int:
+    return cfg.first_dense_layers if cfg.family == "moe" else 0
+
+
+class TransformerLM(nn.Module):
     """Parameters named as the reference's tree: ``embed.tok``,
-    ``layers.<i>.attn.wq``, ``layers.<i>.mlp.w_gate``, ``final_norm``, …"""
+    ``layers.<i>.attn.wq``, ``layers.<i>.mlp.w_gate`` (or
+    ``layers.<i>.moe.router``), ``dense_layers.<i>.…``, ``final_norm``, …"""
 
     def __init__(self, cfg, device):
         super().__init__()
         self.cfg = cfg
+        n_dense = _n_dense(cfg)
         self.embed = Embeddings(cfg, device)
-        self.layers = nn.ModuleList(DenseLayer(cfg, device)
-                                    for _ in range(cfg.n_layers))
+        if n_dense:
+            self.dense_layers = nn.ModuleList(Layer(cfg, device)
+                                              for _ in range(n_dense))
+        self.layers = nn.ModuleList(
+            Layer(cfg, device, use_moe=cfg.family == "moe")
+            for _ in range(cfg.n_layers - n_dense))
         self.final_norm = param((cfg.d_model,), dtype_of(cfg.param_dtype),
                                 device)
+
+    def stacks(self):
+        """The layer stacks in the order they run, with their cache keys."""
+        out = [("dense_layers", self.dense_layers)] if hasattr(
+            self, "dense_layers") else []
+        return out + [("layers", self.layers)]
 
     @torch.no_grad()
     def reset_parameters(self, generator):
         self.embed.reset_parameters(generator)
-        for layer in self.layers:
-            layer.reset_parameters(generator)
+        for _, stack in self.stacks():
+            for layer in stack:
+                layer.reset_parameters(generator)
         self.final_norm.fill_(1.0)
 
 
-def init_lm(cfg, generator, device) -> DenseLM:
-    m = DenseLM(cfg, device)
+LM = TransformerLM
+
+
+def init_lm(cfg, generator, device) -> TransformerLM:
+    m = TransformerLM(cfg, device)
     m.reset_parameters(generator)
     return m
 
 
-def _layer_fwd(x, lp: DenseLayer, cfg):
+def _ffn(lp: Layer, x, cfg):
+    """The layer's MLP or MoE on its normed input: (out, aux loss)."""
+    hin = rms_norm(x, lp.mlp_norm, cfg.norm_eps)
+    if hasattr(lp, "moe"):
+        return moe_mod.moe(lp.moe, hin, cfg)
+    return mlp(lp.mlp, hin), None
+
+
+def _layer_fwd(x, lp: Layer, cfg):
     h, kv = attn_mod.attention(lp.attn, rms_norm(x, lp.attn_norm,
                                                  cfg.norm_eps), cfg)
     x = x + h
-    x = x + mlp(lp.mlp, rms_norm(x, lp.mlp_norm, cfg.norm_eps))
-    return x, kv
+    h, aux = _ffn(lp, x, cfg)
+    return x + h, aux, kv
 
 
-def forward(params: DenseLM, tokens, cfg):
-    """Teacher-forcing forward. tokens: (B, S) integer.
-    Returns (logits (B, S, vocab) fp32, aux_loss)."""
+def _embed(params: TransformerLM, tokens, cfg, vision_embeds):
     x = embed_tokens(params.embed, tokens, cfg)
-    for lp in params.layers:
-        x, _ = _layer_fwd(x, lp, cfg)
+    if vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def forward(params: TransformerLM, tokens, cfg, vision_embeds=None):
+    """Teacher-forcing forward. tokens: (B, S[-V]) integer; VLM:
+    ``vision_embeds`` (B, V, D) are prepended, giving total sequence S.
+    Returns (logits (B, S, vocab) fp32, aux_loss fp32)."""
+    x = _embed(params, tokens, cfg, vision_embeds)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for _, stack in params.stacks():
+        for lp in stack:
+            x, aux, _ = _layer_fwd(x, lp, cfg)
+            if aux is not None:
+                aux_total = aux_total + aux
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    logits = unembed(params.embed, x, cfg).float()
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return unembed(params.embed, x, cfg).float(), aux_total
 
 
 # ---------------------------------------------------------------------- #
@@ -84,34 +134,42 @@ def forward(params: DenseLM, tokens, cfg):
 # ---------------------------------------------------------------------- #
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
                device=None):
-    """k/v caches (n_layers, B, Hkv, S_alloc, hd); with a sliding window
+    """k/v caches (n, B, Hkv, S_alloc, hd) per layer stack (``layers``,
+    and ``dense_layers`` for a first dense stack); with a sliding window
     ``S_alloc = min(max_seq, window)`` and the slots form a ring."""
     hd = cfg.resolved_head_dim
     if cfg.sliding_window is not None:
         max_seq = min(max_seq, cfg.sliding_window)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, hd)
-    return {"layers": {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    n_dense = _n_dense(cfg)
+
+    def mk(n):
+        shape = (n, batch, cfg.n_kv_heads, max_seq, hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    cache = {"layers": mk(cfg.n_layers - n_dense)}
+    if n_dense:
+        cache["dense_layers"] = mk(n_dense)
+    return cache
 
 
-def decode_step(params: DenseLM, cache, tokens, pos: int, cfg):
+def decode_step(params: TransformerLM, cache, tokens, pos: int, cfg):
     """tokens: (B, 1); pos: the position being written. Returns (logits,
     cache); the cache tensors are updated in place (a copy of a multi-GB
     cache per token would dominate decode)."""
     x = embed_tokens(params.embed, tokens, cfg)
-    ck, cv = cache["layers"]["k"], cache["layers"]["v"]
-    for i, lp in enumerate(params.layers):
-        h, _, _ = attn_mod.attention_decode(
-            lp.attn, rms_norm(x, lp.attn_norm, cfg.norm_eps), ck[i], cv[i],
-            pos, cfg)
-        x = x + h
-        x = x + mlp(lp.mlp, rms_norm(x, lp.mlp_norm, cfg.norm_eps))
+    for name, stack in params.stacks():
+        ck, cv = cache[name]["k"], cache[name]["v"]
+        for i, lp in enumerate(stack):
+            h, _, _ = attn_mod.attention_decode(
+                lp.attn, rms_norm(x, lp.attn_norm, cfg.norm_eps), ck[i],
+                cv[i], pos, cfg)
+            x = x + h
+            x = x + _ffn(lp, x, cfg)[0]
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return unembed(params.embed, x, cfg).float(), cache
 
 
-def _cache_write(kv, cache_side):
+def cache_write(kv, cache_side):
     """Write one layer's (B, K, S, hd) kv into its cache slice, handling
     the sliding-window ring layout (slot = abs_pos % S_alloc)."""
     S = kv.shape[2]
@@ -122,15 +180,17 @@ def _cache_write(kv, cache_side):
     cache_side[:, :, :S] = kv.to(cache_side.dtype)
 
 
-def prefill(params: DenseLM, tokens, cfg, max_seq: int,
-            cache_dtype=torch.bfloat16):
-    """Run the prompt; return (logits, cache) with kv written at [0, S)."""
-    x = embed_tokens(params.embed, tokens, cfg)
+def prefill(params: TransformerLM, tokens, cfg, max_seq: int,
+            vision_embeds=None, cache_dtype=torch.bfloat16):
+    """Run the prompt (VLM: after ``vision_embeds``); return (logits,
+    cache) with kv written at [0, S)."""
+    x = _embed(params, tokens, cfg, vision_embeds)
     cache = init_cache(cfg, x.shape[0], max_seq, cache_dtype, x.device)
-    ck, cv = cache["layers"]["k"], cache["layers"]["v"]
-    for i, lp in enumerate(params.layers):
-        x, (k, v) = _layer_fwd(x, lp, cfg)
-        _cache_write(k.transpose(1, 2), ck[i])
-        _cache_write(v.transpose(1, 2), cv[i])
+    for name, stack in params.stacks():
+        ck, cv = cache[name]["k"], cache[name]["v"]
+        for i, lp in enumerate(stack):
+            x, _, (k, v) = _layer_fwd(x, lp, cfg)
+            cache_write(k.transpose(1, 2), ck[i])
+            cache_write(v.transpose(1, 2), cv[i])
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return unembed(params.embed, x, cfg).float(), cache

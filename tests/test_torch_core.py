@@ -158,6 +158,21 @@ def test_split_rmse_matches():
         np.testing.assert_allclose(p[k], r[k], rtol=1e-9)
 
 
+def test_staged_rmse_equals_reference():
+    """RMSE after each boosting stage (the table-3 iteration diagnostic),
+    on held-out rows, bit for bit."""
+    f = fixture()
+    X, yp, yt = (f["ref"][k] for k in ("X", "yp", "yt"))
+    for which, y in (("power", yp), ("time", yt)):
+        rt, pt = (getattr(f[k]["pred"], which) for k in ("ref", "port"))
+        Xe = rt.enc.transform(X)
+        np.testing.assert_array_equal(pt.enc.transform(X), Xe)
+        got = pt.gbdt.staged_rmse(Xe[::3], y[::3])
+        want = rt.gbdt.staged_rmse(Xe[::3], y[::3])
+        assert got.shape == (pt.gbdt.feats.shape[0],)
+        np.testing.assert_array_equal(got, want)
+
+
 def _app_features():
     f = fixture()
     names = list(f["ref"]["feats"])
@@ -240,6 +255,24 @@ def test_service_tables_lazy_and_prefetched(cls, corr):
         np.testing.assert_array_equal(tt_p.P, tt_r.P)
         np.testing.assert_array_equal(tt_p.T, tt_r.T)
     assert ps.stats.kernel_batches == 0          # CPU: the plain version
+
+
+@pytest.mark.parametrize("cls", [None, "v5p"])
+def test_power_at_equals_reference(cls):
+    """The power-cap view: the full ladder, and a clock subset in another
+    order, read from the cached table with no predictor call."""
+    rs, ps = _services()
+    rc = None if cls is None else R.DEVICE_CLASSES[cls]
+    pc = None if cls is None else P.DEVICE_CLASSES[cls]
+    for n in ("GEMM", "SYRK"):
+        np.testing.assert_array_equal(ps.power_at(n, pc), rs.power_at(n, rc))
+        builds = ps.stats.table_builds
+        r_clocks = rs.clocks_for(rs.register_class(rc))[::-3]
+        p_clocks = ps.clocks_for(ps.register_class(pc))[::-3]
+        assert [c.key() for c in p_clocks] == [c.key() for c in r_clocks]
+        np.testing.assert_array_equal(ps.power_at(n, pc, p_clocks),
+                                      rs.power_at(n, rc, r_clocks))
+        assert ps.stats.table_builds == builds
 
 
 def test_service_refuses_unported_tiers_and_unknown_apps():

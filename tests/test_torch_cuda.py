@@ -204,6 +204,42 @@ def test_wgmma_route_matches_plain_version(shape, kw):
                                .float(), **_attn_tol(q, v))
 
 
+#: the shapes the MoE, hybrid, audio and VLM families give the attention
+#: kernel at serving size (chip_smoke.py's FAMILY_ATTN): Whisper's
+#: bidirectional encoder over its 1500 frames, its decoder's
+#: cross-attention and causal self-attention, Zamba2 (32/32 heads, hd 112),
+#: Kimi-K2 (64/8, hd 112) and InternVL2 (64/8, hd 128) with 8 query heads
+#: per KV head, Mixtral's window of 4096 at 6144 tokens
+FAMILY_ATTN = [
+    ((4, 1500, 20, 20, 64, None), {"causal": False}),
+    ((4, 64, 20, 20, 64, 1500), {"causal": False}),
+    ((4, 64, 20, 20, 64, None), {}),
+    ((4, 2048, 32, 32, 112, None), {}),
+    ((4, 2048, 64, 8, 112, None), {}),
+    ((4, 2048, 64, 8, 128, None), {}),
+    ((2, 6144, 48, 8, 128, None), {"window": 4096}),
+]
+
+
+@pytest.mark.parametrize("shape,kw", FAMILY_ATTN)
+def test_wgmma_route_at_the_families_serving_shapes(shape, kw):
+    test_wgmma_route_matches_plain_version(shape, kw)
+
+
+def test_scan_kernel_at_the_hybrid_serving_shape():
+    """Zamba2-7B's Mamba-2 prefill as a Mamba-1 scan: 7168 channels, 64
+    states; each head's A repeated over its 64 channels, as the block
+    passes it."""
+    dev = _card()
+    args = _scan(7, 4, 2048, 7168, 64, dev)
+    args[2] = args[2][::64].repeat_interleave(64, dim=0)[:, :1].expand(
+        7168, 64).contiguous()
+    y, h = ops.mamba_scan(*args)
+    want_y, want_h = ref.mamba_scan_ref(*args)
+    torch.testing.assert_close(y, want_y, **F32)
+    torch.testing.assert_close(h, want_h, **F32)
+
+
 def test_wgmma_route_rows_without_a_key_are_zero():
     """Sq > Sk, causal: the first Sq - Sk rows sit before every key."""
     dev = _card()
@@ -313,6 +349,42 @@ def test_reduced_model_serves_alike_on_card_and_cpu(arch):
     gb = serve.greedy_generate(cfg, cpu, tokens, 5, 48, device="cpu")
     assert torch.equal(ga.cpu(), gb)
     assert (fa.launches, ms.launches) != before
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "kimi-k2-1t-a32b",
+                                  "zamba2-7b", "whisper-large-v3",
+                                  "internvl2-76b"])
+def test_reduced_family_serves_alike_on_card_and_cpu(arch):
+    """The MoE, hybrid, audio and VLM families, reduced, on the card and
+    on the CPU from the same weights and stub inputs: logits within 1e-4,
+    the same greedy tokens."""
+    dev = _card()
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.convert import model_arrays, model_from_arrays
+    from repro_torch.models import model
+    from repro_torch.train import serve
+    cfg = reduce_for_smoke(get_config(arch))
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    cpu = model_from_arrays(cfg, model_arrays(params), device="cpu")
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 40))
+    extra = model.extra_inputs(cfg, 2, 40, "prefill",
+                               torch.Generator().manual_seed(1), device="cpu")
+    on_card = {k: v.to(dev) for k, v in extra.items()}
+    a, aux_a = model.forward(cfg, params, tokens, on_card, device=dev)
+    b, aux_b = model.forward(cfg, cpu, tokens, extra, device="cpu")
+    torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(aux_a.cpu(), aux_b, atol=1e-4, rtol=1e-4)
+    before = (fa.launches, ms.launches)
+    max_seq = 48 + (cfg.vision_tokens if cfg.family == "vlm" else 0)
+    ga = serve.greedy_generate(cfg, params, tokens, 5, max_seq,
+                               extra=on_card, device=dev)
+    gb = serve.greedy_generate(cfg, cpu, tokens, 5, max_seq, extra=extra,
+                               device="cpu")
+    assert torch.equal(ga.cpu(), gb)
+    assert fa.launches > before[0]
+    assert (ms.launches > before[1]) == (cfg.family == "hybrid")
 
 
 @pytest.mark.parametrize("n", [1, 24, 64])

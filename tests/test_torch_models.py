@@ -233,16 +233,6 @@ def test_registry_matches_reference():
         get_config("gpt-2")
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "zamba2-7b",
-                                  "internvl2-76b", "whisper-large-v3"])
-def test_unported_families_raise_naming_the_roadmap(arch):
-    cfg = base.reduce_for_smoke(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.init_cache(cfg, 1, 8, device="cpu")
-
-
 def test_params_must_be_on_the_requested_device():
     cfg, port, tokens, _ = _case("falcon-mamba-7b")
     elsewhere = copy.deepcopy(port).to("meta")
