@@ -87,6 +87,20 @@ card, in phases:
    request) or, for Kimi-K2 (68 GB at fp32), the served bf16 weights
    with fp32 activations on both devices (64 tokens, CPU_TOL), and in
    bf16 as served, printed only (routing flips at 384 experts).
+16. training: SmolLM-360M at full width and depth (361 821 120 bf16
+   params, remat "full", AdamW with fp32 state) on SyntheticLM batches of
+   16 x 4096 tokens in 8 microbatches of 2 (train_4k's global batch of 256
+   cut to 16); 2 untimed and 5 timed steps, each loss finite, step ms,
+   tokens/s, 6*N*tokens TFLOP/s against the dense bf16 peak, peak memory,
+   one step by kernel; no attention or scan kernel may launch. The trained
+   model is then served (greedy_generate: its prefill launches the
+   attention kernel 32 times, all on the wgmma route), and 2 steps are
+   taken with int8 optimizer state (its bytes printed against fp32's).
+   Then every one of the 10 reduced architectures (fp32) takes one train
+   step on the card and on the CPU from the same weights and batch (loss,
+   ce, aux, grad_norm 1e-5 relative; grads 1e-4 of each leaf's max), and a
+   TrainingRunner run with an injected failure equals the clean run bit
+   for bit on the card, with deterministic algorithms on.
 
 Ends with a JSON line of per-kernel numbers, the card line, and
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
@@ -100,14 +114,19 @@ import dataclasses
 import gc
 import hashlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
-import torch.nn.functional as F
+# phase 16's restart check runs with deterministic algorithms, which need
+# cuBLAS's fixed workspace; it must be set before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "schedule_traces.json"
@@ -227,6 +246,22 @@ FED_DEGRADED, FED_SLOWDOWN = (8, 9, 10, 11), 4.0
 MODEL_POOL = ("v5p", "v5e", "v5e", "v5lite")
 MODEL_SERVE, MODEL_TRAIN, MODEL_OVERLOAD = 120, 30, 1.3
 MODEL_CAP_FRAC, MODEL_GUARD = 0.7, 0.15
+#: phase 16: SmolLM-360M trained at full width and depth, at train_4k's
+#: sequence length; its global batch of 256 is cut to 16 (8 microbatches
+#: of 2) to fit the run's time. Untimed steps, timed steps, the int8-state
+#: steps; the served prompt after training
+TRAIN_ARCH, TRAIN_PARAMS = "smollm-360m", 361_821_120
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_FULL_BATCH, TRAIN_MICRO = 4096, 16, 256, 8
+TRAIN_WARM, TRAIN_TIMED, TRAIN_INT8 = 2, 5, 2
+TRAIN_SERVE = (2, 256, 4)                 # prompts, tokens, greedy steps
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)
+#: the every-family cuda == cpu step: reduced configs (fp32), one batch of
+#: FAMILY_TRAIN_ROWS rows of FAMILY_TRAIN_SEQ text tokens; lr of the step
+FAMILY_TRAIN_ROWS, FAMILY_TRAIN_SEQ, FAMILY_TRAIN_LR = 2, 32, 1e-3
+#: the restart on the card: reduced configs, the clean run against one
+#: with a failure at RESTART_FAIL, checkpointed every RESTART_INTERVAL
+RESTART_ARCHS = ("smollm-360m", "mixtral-8x22b")
+RESTART_STEPS, RESTART_INTERVAL, RESTART_FAIL = 10, 4, 6
 
 
 def _check(ok: bool, what: str) -> None:
@@ -338,10 +373,11 @@ def _fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.3f}"
 
 
-def _device_breakdown(fn, top: int = 6) -> str:
+def _device_breakdown(fn, top: int = 6, by_op: bool = False) -> str:
     """Card time of one call of ``fn`` by kernel, from ``torch.profiler``
     (CUPTI): the busy total against the host wall, and the ``top`` kernels
-    by self device time."""
+    by self device time; with ``by_op``, also the ``top`` PyTorch ops by
+    the device time of the kernels each launched itself."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -361,8 +397,16 @@ def _device_breakdown(fn, top: int = 6) -> str:
         return f"no device time recorded (wall {wall * 1e3:.3f} ms)"
     parts = [f"{us / 1e3:.3f} ms x{n} {name[:70]}"
              for us, n, name in rows[:top]]
-    return (f"card busy {busy:.3f} ms of {wall * 1e3:.3f} ms wall (profiled"
-            f"); top kernels: " + "; ".join(parts))
+    out = (f"card busy {busy:.3f} ms of {wall * 1e3:.3f} ms wall (profiled"
+           f"); top kernels: " + "; ".join(parts))
+    if by_op:
+        ops = sorted(((e.self_device_time_total, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CPU
+                      and e.self_device_time_total > 0), reverse=True)
+        out += "; top ops: " + "; ".join(
+            f"{us / 1e3:.3f} ms x{n} {name}" for us, n, name in ops[:top])
+    return out
 
 
 def _reset(counters) -> None:
@@ -1345,12 +1389,297 @@ def _cpu_check(cfg, dev, served=None, prompt: int = 128,
     _free()
 
 
+def _state_bytes(state) -> int:
+    """Bytes of an optimizer state's moments (m and v)."""
+    from repro_torch.optim import adamw
+    total = 0
+    for side in (state.m, state.v):
+        for val in side.values():
+            for t in (val if isinstance(val, adamw.QuantState) else (val,)):
+                total += t.numel() * t.element_size()
+    return total
+
+
+def _train_smollm(counters, fa, ms, dev, card) -> dict:
+    """Phase 16's main path: SmolLM-360M at full width and depth, AdamW with
+    fp32 state, train_4k's sequence, TRAIN_BATCH rows in TRAIN_MICRO
+    microbatches; no attention or scan kernel may launch. Then the trained
+    model served through greedy_generate (its prefill launches K2 once a
+    layer, on the wgmma route), and TRAIN_INT8 steps with int8 state."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train import serve
+    from repro_torch.train.step import make_train_step
+    cfg = get_config(TRAIN_ARCH)
+    _check(cfg.remat == "full" and cfg.param_dtype == "bfloat16",
+           f"{TRAIN_ARCH}: remat 'full', bf16 params as configured")
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev, trainable=True)
+    n_params = sum(p.numel() for p in params.parameters())
+    _check(n_params == TRAIN_PARAMS == cfg.param_count(),
+           f"{TRAIN_ARCH}: {n_params} params")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0, order=2))
+    t0 = time.perf_counter()
+    n_steps = TRAIN_WARM + TRAIN_TIMED + 1 + TRAIN_INT8
+    batches = [data.batch(s) for s in range(n_steps)]
+    data_s = time.perf_counter() - t0
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * n_params * tokens
+    print(f"== phase 16: {TRAIN_ARCH} trained at full width and depth "
+          f"({n_params} params, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size} tied, "
+          f"{cfg.param_dtype}, remat {cfg.remat}) on {dev}; card {card}; "
+          f"SyntheticLM order 2 seed 0, {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+          f"a step in {TRAIN_MICRO} microbatches of "
+          f"{TRAIN_BATCH // TRAIN_MICRO} (cut: train_4k's global batch "
+          f"{TRAIN_FULL_BATCH} -> {TRAIN_BATCH} to fit the run's time); "
+          f"{n_steps} batches made in {data_s:.2f} s (host)", flush=True)
+
+    ocfg = adamw.AdamWConfig(**TRAIN_OPT)
+    opt = adamw.init(params, ocfg)
+    step = make_train_step(cfg, ocfg, microbatches=TRAIN_MICRO, device=dev)
+    _reset(counters)                                     # the main path
+    times, losses = [], []
+    for i in range(TRAIN_WARM + TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt, batches[i])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        loss = float(m["loss"])
+        _check(np.isfinite(loss), f"{TRAIN_ARCH}: step {i} loss {loss}")
+        losses.append(loss)
+        timed = i >= TRAIN_WARM
+        if timed:
+            times.append(dt)
+        print(f"   step {i} ({'timed' if timed else 'untimed'}): loss "
+              f"{loss:.6f} grad_norm {float(m['grad_norm']):.6f} lr "
+              f"{float(m['lr']):.3e}; {dt * 1e3:.1f} ms", flush=True)
+    train_launches = {m_.__name__.rsplit(".", 1)[-1]: m_.launches
+                      for m_ in counters}
+    _check(fa.launches == 0 and ms.launches == 0,
+           f"{TRAIN_ARCH}: training launched kernels {train_launches}")
+    step_s = float(np.mean(times))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tflops = flops / step_s / 1e12
+    print(f"   {TRAIN_TIMED} timed steps: mean {step_s * 1e3:.1f} ms "
+          f"(min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}; host "
+          f"clock, synchronized) = {tokens / step_s:.1f} tokens/s; "
+          f"6*N*tokens = {flops / 1e12:.2f} TFLOP a step = {tflops:.2f} "
+          f"TFLOP/s = {tflops * 1e12 / BF16_OPS_PER_S * 100:.2f} % of the "
+          f"H100 SXM's dense bf16 peak ({BF16_OPS_PER_S / 1e12:.0f} "
+          f"TFLOP/s, NVIDIA data sheet); peak device memory {peak:.2f} GiB;"
+          f" kernel launches during training {train_launches}", flush=True)
+    profile = _device_breakdown(
+        lambda: step(params, opt, batches[TRAIN_WARM + TRAIN_TIMED]),
+        top=10, by_op=True)
+    print(f"   one train step by kernel: {profile}", flush=True)
+    _check(fa.launches == 0 and ms.launches == 0,
+           f"{TRAIN_ARCH}: the profiled step launched a kernel")
+
+    B, S, n = TRAIN_SERVE
+    prompt = np.random.default_rng(16).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    _reset(counters)
+    out = serve.greedy_generate(cfg, params, prompt, n, S + n + 1,
+                                device=dev)
+    torch.cuda.synchronize()
+    served = {m_.__name__.rsplit(".", 1)[-1]: m_.launches for m_ in counters}
+    served["by_route"] = {"flash_attention": dict(fa.route_launches)}
+    _check(fa.launches == cfg.n_layers
+           and fa.route_launches["wgmma"] == cfg.n_layers
+           and ms.launches == 0,
+           f"{TRAIN_ARCH}: serving the trained model launched {served}")
+    _check(tuple(out.shape) == (B, n) and bool(
+        ((out >= 0) & (out < cfg.vocab_size)).all()),
+        f"{TRAIN_ARCH}: generated tokens")
+    print(f"   the trained model served: {B} prompts x {S} tokens, "
+          f"greedy_generate({n}) launches {served}", flush=True)
+
+    fp32_bytes = _state_bytes(opt)
+    del opt
+    _free()
+    ocfg8 = adamw.AdamWConfig(state_dtype="int8", **TRAIN_OPT)
+    opt8 = adamw.init(params, ocfg8)
+    int8_bytes = _state_bytes(opt8)
+    n_quant = sum(p.numel() for p in params.parameters()
+                  if adamw.quantizable(p.shape))
+    step8 = make_train_step(cfg, ocfg8, microbatches=TRAIN_MICRO,
+                            device=dev)
+    _reset(counters)
+    for i in range(TRAIN_INT8):
+        _, _, m = step8(params, opt8, batches[-TRAIN_INT8 + i])
+        loss = float(m["loss"])
+        _check(np.isfinite(loss), f"{TRAIN_ARCH}: int8 step {i} loss {loss}")
+        print(f"   int8-state step {i}: loss {loss:.6f} grad_norm "
+              f"{float(m['grad_norm']):.6f}", flush=True)
+    _check(fa.launches == 0 and ms.launches == 0,
+           f"{TRAIN_ARCH}: int8 training launched a kernel")
+    print(f"   optimizer state (m, v): int8 {int8_bytes} B against fp32 "
+          f"{fp32_bytes} B ({int8_bytes / fp32_bytes:.3f}); {n_quant} of "
+          f"{n_params} params have a last axis that is a multiple of 128",
+          flush=True)
+    del opt8, params, batches
+    _free()
+    return {"step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+            "tflops": tflops, "peak_gib": peak, "losses": losses,
+            "train_launches": train_launches, "served": served,
+            "int8_bytes": int8_bytes, "fp32_bytes": fp32_bytes}
+
+
+def _family_batch(cfg, rows=FAMILY_TRAIN_ROWS, seed=1) -> dict:
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    batch = dict(SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=FAMILY_TRAIN_SEQ,
+        global_batch=rows, seed=seed)).batch(0))
+    rng = np.random.default_rng(seed)
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = rng.standard_normal(
+            (rows, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (rows, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _train_families(dev) -> float:
+    """Every reduced architecture (fp32) takes one train step on the card
+    and on the CPU from the same weights and batch: loss, ce, aux and
+    grad_norm within 1e-5 relative, every grad leaf within 1e-4 of its
+    max |g|, the new params within 2 lr and within 1e-5 on 99.9 % of the
+    entries. Returns the worst grad error relative to its leaf's max."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.convert import model_arrays, model_from_arrays
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import loss_fn, make_train_step
+    worst = 0.0
+    ocfg = adamw.AdamWConfig(lr=FAMILY_TRAIN_LR, warmup_steps=1,
+                             total_steps=50)
+    for arch in ARCH_IDS:
+        cfg = reduce_for_smoke(get_config(arch))
+        arrays = model_arrays(model.init(
+            cfg, torch.Generator().manual_seed(2), device="cpu"))
+        batch = _family_batch(cfg)
+        out = []
+        for d in (dev, torch.device("cpu")):
+            params = model_from_arrays(cfg, arrays, device=d)
+            params.requires_grad_(True)
+            loss, _ = loss_fn(params, batch, cfg, device=d)
+            named = dict(params.named_parameters())
+            grads = dict(zip(named, torch.autograd.grad(
+                loss, list(named.values()))))
+            step = make_train_step(cfg, ocfg, device=d)
+            _, _, m = step(params, adamw.init(params, ocfg), batch)
+            out.append(({k: float(v) for k, v in m.items()},
+                        {n: g.cpu() for n, g in grads.items()},
+                        {n: p.detach().cpu() for n, p in named.items()}))
+        (mc, gc_, pc), (mh, gh, ph) = out
+        for k in ("loss", "ce", "aux", "grad_norm", "lr"):
+            _check(abs(mc[k] - mh[k]) <= 1e-5 * abs(mh[k]),
+                   f"{arch}: train step {k} cuda {mc[k]} cpu {mh[k]}")
+        for n, g in gh.items():
+            err = float((gc_[n] - g).abs().max()) / max(
+                float(g.abs().max()), 1e-30)
+            worst = max(worst, err)
+            _check(err <= 1e-4, f"{arch}: grad {n} cuda vs cpu {err:.3e}")
+        close = total = 0
+        for n, p in ph.items():
+            d_ = (pc[n] - p).abs()
+            _check(float(d_.max()) <= 2 * FAMILY_TRAIN_LR * (1 + 1e-3),
+                   f"{arch}: new {n} cuda vs cpu {float(d_.max()):.3e}")
+            close += int((d_ <= 1e-5).sum())
+            total += d_.numel()
+        _check(close >= 0.999 * total, f"{arch}: {close} of {total} new "
+               "params within 1e-5")
+        print(f"   {arch} (reduced, fp32): train step cuda == cpu: loss "
+              f"{mc['loss']:.6f} / {mh['loss']:.6f}, aux {mc['aux']:.6f} / "
+              f"{mh['aux']:.6f}, grad_norm {mc['grad_norm']:.6f} / "
+              f"{mh['grad_norm']:.6f}; new params within 1e-5 at "
+              f"{close / total:.5f}", flush=True)
+    return worst
+
+
+def _train_leaves(p, o) -> list:
+    """(name, tensor) of every parameter and optimizer-state tensor."""
+    out = list(p.named_parameters()) + [("step", o.step)]
+    for side, vals in (("m", o.m), ("v", o.v)):
+        for n, v in vals.items():
+            for i, t in enumerate(v if isinstance(v, tuple) else (v,)):
+                out.append((f"{side}.{n}.{i}", t))
+    return out
+
+
+def _restart_on_card(dev) -> None:
+    """A TrainingRunner run with an injected failure equals the clean run
+    bit for bit on the card, with deterministic algorithms on (the
+    embedding backward's and the MoE's index accumulations take their
+    deterministic kernels)."""
+    import copy
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.dist import (FailureInjector, RunnerConfig,
+                                  TrainingRunner)
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    torch.use_deterministic_algorithms(True)
+    try:
+        for arch in RESTART_ARCHS:
+            cfg = reduce_for_smoke(get_config(arch))
+            params = model.init(cfg, torch.Generator(device=dev).manual_seed(
+                3), device=dev, trainable=True)
+            ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                     total_steps=50)
+            step = make_train_step(cfg, ocfg, device=dev)
+
+            def data_fn(s, cfg=cfg):
+                return _family_batch(cfg, rows=4, seed=100 + s)
+            runs = {}
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+                for label, fail in (("clean", ()), ("faulty",
+                                                    (RESTART_FAIL,))):
+                    p = copy.deepcopy(params)
+                    runner = TrainingRunner(
+                        RunnerConfig(f"{d}/{label}",
+                                     ckpt_interval=RESTART_INTERVAL),
+                        step, data_fn, injector=FailureInjector(fail))
+                    p, o, m = runner.run(p, adamw.init(p, ocfg), 0,
+                                         RESTART_STEPS)
+                    runs[label] = ({"p": p, "o": o}, runner.restarts,
+                                   float(m["loss"]))
+            (a, ra, la), (b, rb, lb) = runs["clean"], runs["faulty"]
+            _check(ra == 0 and rb == 1, f"{arch}: restarts {ra}, {rb}")
+            n = 0
+            for (path, x), (_, y) in zip(_train_leaves(**a),
+                                         _train_leaves(**b)):
+                _check(torch.equal(x, y), f"{arch}: restart leaf {path}")
+                n += 1
+            print(f"   {arch} (reduced): {RESTART_STEPS} steps with a "
+                  f"failure at step {RESTART_FAIL} and a restart from step "
+                  f"{RESTART_FAIL // RESTART_INTERVAL * RESTART_INTERVAL}: "
+                  f"all {n} leaves of params and optimizer state equal the "
+                  f"clean run's bit for bit; final loss {lb!r} == {la!r} "
+                  f"(deterministic algorithms on)", flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
               "card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import ARCH_IDS
     from repro_torch.configs.paper_suite import PAPER_APPS
     from repro_torch.convert import predictor_arrays, predictor_from_arrays
     from repro_torch.core import (EnergyTimePredictor, PredictionService,
@@ -1617,6 +1946,18 @@ def main() -> int:
     for phase, (arch, kernels, kw) in FAMILY_PHASES.items():
         per_prefill = {{"fa": fa, "ms": ms}[k]: n for k, n in kernels.items()}
         served[phase] = _serve(arch, per_prefill, counters, dev, phase, **kw)
+    t0 = time.perf_counter()
+    trained = _train_smollm(counters, fa, ms, dev, card)
+    served[16] = trained["served"]
+    _reset(counters)
+    worst_grad = _train_families(dev)
+    _restart_on_card(dev)
+    _check(fa.launches == 0 and ms.launches == 0,
+           f"the cuda == cpu steps and the restart launched {fa.launches} "
+           f"attention and {ms.launches} scan kernels")
+    print(f"   phase 16: all {len(ARCH_IDS)} reduced archs train alike on "
+          f"cuda and cpu (worst grad error {worst_grad:.3e} of its leaf's "
+          f"max); {time.perf_counter() - t0:.1f} s in all", flush=True)
 
     t768 = timing[768]
     rows = [{
@@ -1652,6 +1993,8 @@ def main() -> int:
             "replaces": f"src/repro/kernels/{name}.py:{line}",
             "launches": served[main][name],
             "max_abs_err": err, **times[name],
+            # phase 16: the training steps launch no attention or scan
+            "launches_train": trained["train_launches"][name],
             # greedy_generate's launches in each serving phase
             "launches_by_phase": {str(ph): got[name]
                                   for ph, got in served.items()

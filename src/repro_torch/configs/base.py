@@ -2,9 +2,14 @@
 
 A copy of the reference's schema, field for field, so that a reference
 config carries over to the port as ``ModelConfig(**dataclasses.asdict(c))``.
-Fields that steer the reference's sharding, remat, scan and optimizer
-(``remat``, ``scan_layers``, ``opt_state_dtype``, ``fsdp_over_pod``,
-``grad_accum_dtype``) are carried but read by nothing the port has yet."""
+The training path reads ``remat`` (``"full"`` rematerialises each layer
+body, :func:`repro_torch.models.common.layer_call`), ``grad_accum_dtype``
+(the microbatch gradient accumulator of
+:func:`repro_torch.train.step.make_train_step`) and ``attn_impl`` (a config
+asking for ``"flash"`` cannot train). Fields that steer the reference's
+sharding, scan and dry-run (``scan_layers``, ``opt_state_dtype``,
+``fsdp_over_pod``) are carried but read by nothing the port has yet
+(distribution and the dry-run, ROADMAP §1 item 14)."""
 from __future__ import annotations
 
 import dataclasses
@@ -51,9 +56,10 @@ class ModelConfig:
     param_dtype: str = "bfloat16"
     activation_dtype: str = "bfloat16"
     remat: str = "full"                      # none | full
-    # the reference's route switch; the port routes nothing by it: its
-    # full-sequence attention and Mamba-1 prefill always take the kernels
-    # (ops.flash_attention, ops.mamba_scan), as the reference's "flash" does
+    # the reference's route switch. The port's serving always takes the
+    # kernels (ops.flash_attention, ops.mamba_scan), as the reference's
+    # "flash" does; its train step always takes the differentiable "xla"
+    # route and refuses a config that asks for "flash"
     attn_impl: str = "xla"
     scan_layers: bool = True
     # optimizer-state dtype: "float32" or "int8" (blockwise, for 1T-scale)

@@ -23,6 +23,12 @@ projection as ``(in, out)``, so every leaf is a plain copy: the tree path
 ``layers/attn/wq`` of layer 3 is the parameter ``layers.3.attn.wq``. Every
 stacked subtree — ``layers``, and by family ``dense_layers``,
 ``enc_layers`` and ``dec_layers`` — is unstacked the same way.
+
+:func:`opt_state_from_arrays` does the same for the reference's optimizer
+state (``AdamWState(step, m, v)`` as numpy, ``QuantState`` leaves of an
+int8 state included), giving the port's :class:`~repro_torch.optim.adamw.
+AdamWState`, keyed by parameter name, so a reference run continues in the
+port; :func:`opt_state_arrays` is its inverse.
 """
 from __future__ import annotations
 
@@ -35,8 +41,10 @@ from .core.gbdt import GBDTModel, GBDTParams, OrderedTargetEncoder
 from .core.predictor import EnergyTimePredictor, PredictorConfig
 from .device import DEFAULT_DEVICE, resolve_device
 from .models import model as model_lib
+from .optim import adamw
 
-__all__ = ["model_arrays", "model_from_arrays", "predictor_arrays",
+__all__ = ["model_arrays", "model_from_arrays", "opt_state_arrays",
+           "opt_state_from_arrays", "predictor_arrays",
            "predictor_from_arrays"]
 
 _GBDT_FIELDS = ("gbdt", "gbdt_time")
@@ -124,6 +132,34 @@ def _stacks(module) -> dict:
             if isinstance(child, torch.nn.ModuleList)}
 
 
+def _tensor(arr) -> torch.Tensor:
+    """A numpy array as a tensor; a bfloat16 (ml_dtypes) array keeps its
+    bits."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.tensor(arr)
+
+
+def _unstacked(tree, depth: dict):
+    """(parameter name, leaf) for every leaf of a reference-layout tree,
+    each stacked subtree's leaves split into one per layer."""
+    for path, arr in _flatten(tree):
+        stack, _, rest = path.partition(".")
+        if stack not in depth:
+            yield path, arr
+            continue
+        n = len(arr.q if isinstance(arr, tuple) else arr)
+        if n != depth[stack]:
+            raise ValueError(f"{path}: {n} stacked layers, the model has "
+                             f"{depth[stack]} in {stack}")
+        for i in range(n):
+            leaf = (type(arr)(*(a[i] for a in arr))
+                    if isinstance(arr, tuple) else arr[i])
+            yield f"{stack}.{i}.{rest}", leaf
+
+
 @torch.no_grad()
 def model_from_arrays(cfg, arrays: dict, device=DEFAULT_DEVICE):
     """The port's model for ``cfg`` on ``device``, with every parameter
@@ -138,51 +174,116 @@ def model_from_arrays(cfg, arrays: dict, device=DEFAULT_DEVICE):
         if name not in params:
             raise KeyError(f"no parameter {name!r} in the {cfg.family} model")
         p = params[name]
-        t = torch.tensor(np.asarray(arr))
+        t = _tensor(arr)
         if tuple(t.shape) != tuple(p.shape):
             raise ValueError(f"{name}: array shape {tuple(t.shape)} != "
                              f"parameter shape {tuple(p.shape)}")
         p.copy_(t.to(device=dev, dtype=p.dtype))
         filled.add(name)
 
-    for path, arr in _flatten(arrays):
-        stack, _, rest = path.partition(".")
-        if stack in depth:
-            if len(arr) != depth[stack]:
-                raise ValueError(f"{path}: {len(arr)} stacked layers, the "
-                                 f"model has {depth[stack]} in {stack}")
-            for i in range(depth[stack]):
-                put(f"{stack}.{i}.{rest}", arr[i])
-        else:
-            put(path, arr)
+    for name, arr in _unstacked(arrays, depth):
+        put(name, arr)
     missing = sorted(set(params) - filled)
     if missing:
         raise KeyError(f"arrays give no value for {missing}")
     return module
 
 
-def model_arrays(module) -> dict:
-    """The parameter tree of a port model as fp32 numpy arrays, each
-    stacked subtree's layers stacked on a leading axis (the reference's
-    layout)."""
-    stacks = _stacks(module)
+def _stacked(named: dict, stacks) -> dict:
+    """The reference's tree of ``named`` values (arrays, or tuples of
+    arrays such as ``QuantState``) by parameter name: nested dicts, each
+    stacked subtree's layers stacked on a leading axis."""
     tree: dict = {}
-    for name, p in module.named_parameters():
+    for name, val in named.items():
         parts = name.split(".")
-        arr = p.detach().float().cpu().numpy()
         if parts[0] in stacks:
             node = tree.setdefault(parts[0], {})
             for key in parts[2:-1]:
                 node = node.setdefault(key, {})
-            node.setdefault(parts[-1], []).append(arr)
+            node.setdefault(parts[-1], []).append(val)
         else:
             node = tree
             for key in parts[:-1]:
                 node = node.setdefault(key, {})
-            node[parts[-1]] = arr
+            node[parts[-1]] = val
 
-    def stack(node):
-        return {k: stack(v) if isinstance(v, dict) else
-                (np.stack(v) if isinstance(v, list) else v)
-                for k, v in node.items()}
+    def stack(v):
+        if isinstance(v, dict):
+            return {k: stack(x) for k, x in v.items()}
+        if not isinstance(v, list):
+            return v
+        if isinstance(v[0], tuple):
+            return type(v[0])(*(np.stack(a) for a in zip(*v)))
+        return np.stack(v)
     return stack(tree)
+
+
+def model_arrays(module) -> dict:
+    """The parameter tree of a port model as fp32 numpy arrays, each
+    stacked subtree's layers stacked on a leading axis (the reference's
+    layout)."""
+    return _stacked({name: p.detach().float().cpu().numpy()
+                     for name, p in module.named_parameters()},
+                    _stacks(module))
+
+
+def _field(state, name):
+    return state[name] if isinstance(state, dict) else getattr(state, name)
+
+
+def opt_state_from_arrays(module, state, device=None) -> adamw.AdamWState:
+    """The port's optimizer state for ``module`` (its parameters' names and
+    shapes; on the module's device unless ``device``) from the reference's
+    ``AdamWState`` with numpy leaves (``jax.tree.map(np.asarray,
+    state)``), or a dict with its ``step``, ``m`` and ``v``. ``m`` leaves
+    are fp32 arrays or ``QuantState``-like ``(q, scale)`` pairs, ``v``
+    leaves fp32 or bf16; every value is copied bit for bit."""
+    params = dict(module.named_parameters())
+    dev = (resolve_device(device) if device is not None else
+           next(iter(params.values())).device)
+    depth = {name: len(stack) for name, stack in _stacks(module).items()}
+
+    def side(tree, what):
+        out = {}
+        for name, leaf in _unstacked(tree, depth):
+            if name not in params:
+                raise KeyError(f"{what}: no parameter {name!r} in the "
+                               f"{module.cfg.family} model")
+            shape = tuple(params[name].shape)
+            if isinstance(leaf, tuple):
+                q, scale = (_tensor(a).to(dev) for a in leaf)
+                want = (shape, shape[:-1] + (shape[-1] // adamw.BLOCK,))
+                got = (tuple(q.shape), tuple(scale.shape))
+                val = adamw.QuantState(q=q, scale=scale)
+            else:
+                val = _tensor(leaf).to(dev)
+                want, got = shape, tuple(val.shape)
+            if got != want:
+                raise ValueError(f"{what}.{name}: shape {got} != {want}")
+            out[name] = val
+        missing = sorted(set(params) - set(out))
+        if missing:
+            raise KeyError(f"{what} gives no value for {missing}")
+        return out
+
+    step = torch.tensor(int(np.asarray(_field(state, "step"))),
+                        dtype=torch.int32, device=dev)
+    return adamw.AdamWState(step=step, m=side(_field(state, "m"), "m"),
+                            v=side(_field(state, "v"), "v"))
+
+
+def opt_state_arrays(module, state: adamw.AdamWState) -> dict:
+    """The port's optimizer state in the reference's layout: ``{"step",
+    "m", "v"}`` with ``m`` and ``v`` trees like :func:`model_arrays`'s;
+    ``QuantState`` leaves keep int8 ``q`` and fp32 ``scale``, bf16 leaves
+    come back as fp32 (the cast is exact)."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def side(values):
+        return _stacked({n: type(v)(*(host(a) for a in v))
+                         if isinstance(v, tuple) else host(v)
+                         for n, v in values.items()}, _stacks(module))
+    return {"step": np.asarray(int(state.step), dtype=np.int32),
+            "m": side(state.m), "v": side(state.v)}

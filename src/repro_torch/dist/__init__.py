@@ -1,6 +1,15 @@
-"""Distributed-substrate utilities: the straggler monitor of the federation
-layer. The checkpointed restart loop comes with training (ROADMAP §1.13) and
-the compressed collectives with distribution (§1.14)."""
-from .fault_tolerance import StragglerMonitor
+"""Distributed-substrate utilities: the checkpointed restart loop of
+training (:class:`TrainingRunner`, :class:`FailureInjector`) and the
+straggler monitor of the federation layer. The compressed collectives come
+with distribution (ROADMAP §1 item 14)."""
+from .fault_tolerance import (FailureInjector, RunnerConfig,
+                              SimulatedFailure, StragglerMonitor,
+                              TrainingRunner)
 
-__all__ = ["StragglerMonitor"]
+__all__ = [
+    "SimulatedFailure",
+    "FailureInjector",
+    "RunnerConfig",
+    "TrainingRunner",
+    "StragglerMonitor",
+]

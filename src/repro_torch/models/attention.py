@@ -4,13 +4,23 @@ Layouts, as the reference's:
   q:  (B, S, Hq, hd)    k/v: (B, S, Hkv, hd)
   KV cache (decode): k/v (B, Hkv, S_max, hd), written in place at ``pos``.
 
-Full-sequence attention — causal self-attention, the bidirectional
-encoder and cross-attention over an encoder's states — always goes
-through the flash kernel (:func:`repro_torch.kernels.ops.flash_attention`),
-with the reference's ``attn_impl="flash"`` semantics, except that
-``causal=False`` is honoured (the reference's flash route ignores its
-``mask`` and turns a bidirectional encoder causal). Single-token decode is
-plain torch, as in the reference: no kernel there.
+Full-sequence attention (causal self-attention, the bidirectional encoder
+and cross-attention over an encoder's states) takes one of two routes,
+chosen by the ``impl`` argument alone:
+
+* ``"flash"`` (the default, and serving's route): the flash kernel
+  (:func:`repro_torch.kernels.ops.flash_attention`), with the reference's
+  ``attn_impl="flash"`` semantics, except that ``causal=False`` is
+  honoured (the reference's flash route ignores its ``mask`` and turns a
+  bidirectional encoder causal). The kernel is forward-only: an input that
+  requires grad raises.
+* ``"xla"`` (training's route): the reference's differentiable plain path,
+  :func:`_plain_gqa` as its ``_sdpa`` with the causal (and windowed)
+  (Sq, Sk) mask, no mask for the encoder (the reference's all-true mask)
+  and for cross-attention, and :func:`_sdpa_chunked` for a causal
+  sequence of at least 8192 positions in whole 2048-position chunks.
+
+Single-token decode is plain torch, as in the reference: no kernel there.
 """
 from __future__ import annotations
 
@@ -21,7 +31,7 @@ from torch import nn
 
 from ..kernels import ops as kops
 from ..kernels.ref import NEG_INF
-from .common import apply_rope, dense_init, dtype_of, param
+from .common import apply_rope, check_impl, dense_init, dtype_of, param
 
 
 class Attention(nn.Module):
@@ -88,19 +98,44 @@ def causal_mask(Sq: int, Sk: int, window=None, offset: int = 0,
     return m[None]
 
 
-def attention(p: Attention, x, cfg, positions=None, causal: bool = True):
-    """Full-sequence self-attention (prefill; the encoder with
+def attention(p: Attention, x, cfg, positions=None, causal: bool = True,
+              impl: str = "flash"):
+    """Full-sequence self-attention (prefill and training; the encoder with
     ``causal=False``), RoPE at ``positions`` (default ``0 .. S-1``, for
-    the encoder too, as the reference). Returns (out, (k, v)) with k, v in
+    the encoder too, as the reference), through the kernel or the plain
+    path as ``impl`` says. Returns (out, (k, v)) with k, v in
     (B, S, Hkv, hd)."""
+    check_impl(impl)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = kops.flash_attention(q, k, v, causal=causal,
-                               window=cfg.sliding_window)
-    out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
+    if impl == "flash":
+        out = kops.flash_attention(q, k, v, causal=causal,
+                                   window=cfg.sliding_window)
+        out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
+    elif causal and S >= 8192 and S % 2048 == 0:
+        out = _sdpa_chunked(q, k, v, cfg)
+    else:
+        mask = (causal_mask(S, S, cfg.sliding_window, device=x.device)[0]
+                if causal else None)
+        out = _plain_gqa(q, k.transpose(1, 2), v.transpose(1, 2), mask)
     return out @ p.wo.to(x.dtype), (k, v)
+
+
+def _sdpa_chunked(q, k, v, cfg, chunk: int = 2048):
+    """Causal attention one block of ``chunk`` queries at a time, as the
+    reference's ``_sdpa_chunked``: the live scores are (B, Hq, chunk, Sk)
+    in place of (B, Hq, S, Sk); the sliding window is honoured in each
+    block's mask. Returns (B, S, Hq*hd)."""
+    S = q.shape[1]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    outs = []
+    for c0 in range(0, S, chunk):
+        mask = causal_mask(chunk, S, cfg.sliding_window, offset=c0,
+                           device=q.device)[0]
+        outs.append(_plain_gqa(q[:, c0:c0 + chunk], kt, vt, mask))
+    return torch.cat(outs, dim=1)
 
 
 def _project_cross(p: Attention, x, source, cfg):
@@ -115,13 +150,19 @@ def _project_cross(p: Attention, x, source, cfg):
     return q, k, v
 
 
-def cross_attention(p: Attention, x, source, cfg):
-    """Every query of x over every row of ``source``: the flash kernel,
-    non-causal (the decoder's prompt over the encoder's states)."""
+def cross_attention(p: Attention, x, source, cfg, impl: str = "flash"):
+    """Every query of x over every row of ``source`` (the decoder's prompt
+    over the encoder's states), non-causal: the flash kernel, or with
+    ``impl="xla"`` the plain path with no mask, as the reference's
+    ``encdec._cross_attention``."""
+    check_impl(impl)
     B, S, _ = x.shape
     q, k, v = _project_cross(p, x, source, cfg)
-    out = kops.flash_attention(q, k, v, causal=False)
-    out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
+    if impl == "flash":
+        out = kops.flash_attention(q, k, v, causal=False)
+        out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
+    else:
+        out = _plain_gqa(q, k.transpose(1, 2), v.transpose(1, 2))
     return out @ p.wo.to(x.dtype)
 
 
@@ -137,9 +178,10 @@ def _plain_gqa(q, k, v, valid=None):
     """q (B, S, Hq, hd) over k/v (B, Hkv, Sk, hd), as the reference's
     ``_sdpa``: products of the q-dtype values summed in fp32 (its einsums
     with preferred_element_type=float32), probabilities rounded to q's
-    dtype. ``valid`` (Sk,) masks keys. Returns (B, S, Hq*hd) in q's dtype."""
+    dtype. ``valid`` masks keys: (Sk,) for every query alike, or (S, Sk)
+    per query. Returns (B, S, Hq*hd) in q's dtype."""
     B, S, Hq, hd = q.shape
-    K = k.shape[1]
+    K, Sk = k.shape[1], k.shape[2]
     G = Hq // K
     # a KV head's G query heads and S rows as one (G*S, hd) block
     qg = q.reshape(B, S, K, G, hd).permute(0, 2, 3, 1, 4).reshape(
@@ -148,7 +190,8 @@ def _plain_gqa(q, k, v, valid=None):
     vf = v.to(q.dtype).float()
     scores = (qg @ kf.transpose(-1, -2)) / math.sqrt(hd)     # (B,K,G*S,Sk)
     if valid is not None:
-        scores = torch.where(valid, scores, NEG_INF)
+        scores = torch.where(valid, scores.view(B, K, G, S, Sk),
+                             NEG_INF).view(B, K, G * S, Sk)
     probs = torch.softmax(scores, dim=-1).to(q.dtype).float()
     out = (probs @ vf).to(q.dtype).reshape(B, K, G, S, hd)
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq * hd)

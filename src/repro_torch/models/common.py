@@ -6,8 +6,11 @@ layouts: a projection is stored ``(in, out)`` and applied as ``x @ w``, so
 a weight carries between the packages as a plain copy
 (:mod:`repro_torch.convert`). Modules allocate their parameters and
 ``reset_parameters(generator)`` fills them; the model code itself is plain
-functions on tensors. Parameters do not require grad: this package serves,
-and its kernels are forward-only.
+functions on tensors. Parameters are made frozen (``requires_grad=False``)
+for serving; the trainer turns grads on explicitly, with
+``model.init(..., trainable=True)`` or ``params.requires_grad_(True)``
+(:mod:`repro_torch.train.step`). Training runs the differentiable
+``impl="xla"`` route: the attention and scan kernels are forward-only.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -29,6 +33,26 @@ def param(shape, dtype, device) -> nn.Parameter:
     """An uninitialized, frozen parameter."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
+
+
+#: the full-sequence routes: the forward-only kernels ("flash", serving)
+#: or the differentiable plain path ("xla", training)
+IMPLS = ("flash", "xla")
+
+
+def check_impl(impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+
+
+def layer_call(cfg, fn, *args):
+    """``fn(*args)``, rematerialised in the backward pass when
+    ``cfg.remat == "full"`` (the reference wraps its layer bodies in
+    ``jax.checkpoint``): only the layer's inputs are kept, and its
+    activations are recomputed when the gradient reaches it."""
+    if cfg.remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------- #

@@ -15,6 +15,10 @@ decode step it re-projects its K/V from the encoder's states, which the
 cache holds (``enc_out``, in the cache dtype). One behaviour does not:
 the encoder stays bidirectional through the attention kernel
 (``causal=False``), where the reference's flash route ignores its mask.
+``forward`` takes the attention route by its ``impl`` argument (``"xla"``
+to train: the reference's default route, where cross-attention has no
+mask and the encoder's mask is all true) and, with ``cfg.remat ==
+"full"``, rematerialises each encoder and decoder layer body.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import torch
 from torch import nn
 
 from . import attention as attn_mod
-from .common import (Embeddings, LayerNorm, embed_tokens, ln,
+from .common import (Embeddings, LayerNorm, embed_tokens, layer_call, ln,
                      sinusoidal_positions, unembed)
 from .mlp import MLP, mlp
 
@@ -101,25 +105,31 @@ def _need_frames(frames, what):
         raise ValueError(f"encoder-decoder {what} needs `frames`")
 
 
-def encode(params: EncDecLM, frames, cfg):
+def encode(params: EncDecLM, frames, cfg, impl: str = "flash"):
     """frames: (B, S_enc, D) stub frame embeddings → encoder states."""
     S = frames.shape[1]
     pos = sinusoidal_positions(S, cfg.d_model, frames.device)
     x = frames + pos.to(frames.dtype)[None]
-    for lp in params.enc_layers:
+
+    def body(x, lp):
         h, _ = attn_mod.attention(lp.attn, ln(x, lp.attn_norm, cfg.norm_eps),
-                                  cfg, causal=False)
+                                  cfg, causal=False, impl=impl)
         x = x + h
-        x = x + mlp(lp.mlp, ln(x, lp.mlp_norm, cfg.norm_eps))
+        return x + mlp(lp.mlp, ln(x, lp.mlp_norm, cfg.norm_eps))
+
+    for lp in params.enc_layers:
+        x = layer_call(cfg, body, x, lp)
     return ln(x, params.enc_final_norm, cfg.norm_eps)
 
 
-def _dec_layer(x, lp: DecoderLayer, enc_out, cfg):
+def _dec_layer(x, lp: DecoderLayer, enc_out, cfg, impl: str = "flash"):
     h, kv = attn_mod.attention(lp.self_attn,
-                               ln(x, lp.self_norm, cfg.norm_eps), cfg)
+                               ln(x, lp.self_norm, cfg.norm_eps), cfg,
+                               impl=impl)
     x = x + h
     x = x + attn_mod.cross_attention(
-        lp.cross_attn, ln(x, lp.cross_norm, cfg.norm_eps), enc_out, cfg)
+        lp.cross_attn, ln(x, lp.cross_norm, cfg.norm_eps), enc_out, cfg,
+        impl=impl)
     x = x + mlp(lp.mlp, ln(x, lp.mlp_norm, cfg.norm_eps))
     return x, kv
 
@@ -129,13 +139,18 @@ def _head(params: EncDecLM, x, cfg):
     return unembed(params.embed, x, cfg).float()
 
 
-def forward(params: EncDecLM, tokens, cfg, frames=None):
+def forward(params: EncDecLM, tokens, cfg, frames=None,
+            impl: str = "flash"):
     """tokens: (B, S_dec); frames: (B, S_enc, D) stub embeddings."""
     _need_frames(frames, "forward")
-    enc_out = encode(params, frames, cfg)
+    enc_out = encode(params, frames, cfg, impl)
     x = embed_tokens(params.embed, tokens, cfg)
+
+    def body(x, lp):
+        return _dec_layer(x, lp, enc_out, cfg, impl)[0]
+
     for lp in params.dec_layers:
-        x, _ = _dec_layer(x, lp, enc_out, cfg)
+        x = layer_call(cfg, body, x, lp)
     return (_head(params, x, cfg),
             torch.zeros((), dtype=torch.float32, device=x.device))
 

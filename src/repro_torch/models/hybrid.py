@@ -11,6 +11,9 @@ block, and a tail of 3 blocks.
 
 A prompt runs the scan kernel in every Mamba-2 block and the attention
 kernel in every application; decode is the plain single step of each.
+``forward`` takes the route by its ``impl`` argument (``"xla"`` to train)
+and, with ``cfg.remat == "full"``, rematerialises each Mamba-2 block, as
+the reference does (its shared block is not rematerialised).
 """
 from __future__ import annotations
 
@@ -18,8 +21,8 @@ import torch
 from torch import nn
 
 from . import attention as attn_mod
-from .common import (Embeddings, dtype_of, embed_tokens, param, rms_norm,
-                     unembed)
+from .common import (Embeddings, dtype_of, embed_tokens, layer_call, param,
+                     rms_norm, unembed)
 from .mlp import MLP, mlp
 from .ssm import Mamba2, mamba2_block
 from .transformer import cache_write
@@ -108,9 +111,10 @@ def _segments(cfg):
     return segs
 
 
-def _shared_fwd(sp: SharedBlock, x, cfg):
+def _shared_fwd(sp: SharedBlock, x, cfg, impl: str = "flash"):
     h, kv = attn_mod.attention(sp.attn, rms_norm(x, sp.attn_norm,
-                                                 cfg.norm_eps), cfg)
+                                                 cfg.norm_eps), cfg,
+                               impl=impl)
     x = x + h
     x = x + mlp(sp.mlp, rms_norm(x, sp.mlp_norm, cfg.norm_eps))
     return x, kv
@@ -121,30 +125,37 @@ def _head(params: HybridLM, x, cfg):
     return unembed(params.embed, x, cfg).float()
 
 
-def _run(params: HybridLM, x, cfg, cache=None):
+def _run(params: HybridLM, x, cfg, cache=None, impl: str = "flash"):
     """The prompt through every segment and application; with ``cache``,
     each block's conv and ssm state and each application's k/v are
-    written there."""
+    written there; without one (the training forward) each Mamba-2 block
+    runs through :func:`~repro_torch.models.common.layer_call`."""
     n_apps = n_attn_applications(cfg)
+
+    def block(x, lp):
+        h, st = mamba2_block(lp.mamba, rms_norm(x, lp.norm, cfg.norm_eps),
+                             cfg, impl=impl)
+        return x + h, st
+
     for a, (lo, hi) in enumerate(_segments(cfg)):
         for i in range(lo, hi):
-            lp = params.layers[i]
-            h, st = mamba2_block(lp.mamba, rms_norm(x, lp.norm,
-                                                    cfg.norm_eps), cfg)
-            x = x + h
-            if cache is not None:
-                cache["conv"][i] = st["conv"]
-                cache["ssm"][i] = st["ssm"]
+            if cache is None:
+                x, _ = layer_call(cfg, block, x, params.layers[i])
+                continue
+            x, st = block(x, params.layers[i])
+            cache["conv"][i] = st["conv"]
+            cache["ssm"][i] = st["ssm"]
         if a < n_apps:
-            x, (k, v) = _shared_fwd(params.shared_attn, x, cfg)
+            x, (k, v) = _shared_fwd(params.shared_attn, x, cfg, impl)
             if cache is not None:
                 cache_write(k.transpose(1, 2), cache["attn_k"][a])
                 cache_write(v.transpose(1, 2), cache["attn_v"][a])
     return x
 
 
-def forward(params: HybridLM, tokens, cfg):
-    x = _run(params, embed_tokens(params.embed, tokens, cfg), cfg)
+def forward(params: HybridLM, tokens, cfg, impl: str = "flash"):
+    x = _run(params, embed_tokens(params.embed, tokens, cfg), cfg,
+             impl=impl)
     return (_head(params, x, cfg),
             torch.zeros((), dtype=torch.float32, device=x.device))
 

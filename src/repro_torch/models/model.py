@@ -1,7 +1,7 @@
 """Model dispatcher: one API over every architecture family.
 
-  init(cfg, generator, device)                         → params (nn.Module)
-  forward(cfg, params, tokens, extra, device)          → (logits, aux_loss)
+  init(cfg, generator, device, trainable)              → params (nn.Module)
+  forward(cfg, params, tokens, extra, device, impl)    → (logits, aux_loss)
   prefill(cfg, params, tokens, max_seq, extra, …)      → (logits, cache)
   decode_step(cfg, params, cache, tokens, pos, device) → (logits, cache)
   init_cache(cfg, batch, max_seq, dtype, device)       → cache
@@ -16,7 +16,9 @@ audio (forward and prefill), ``vision_embeds`` for vlm; a key a family
 does not take raises. Every entry point takes ``device`` (default
 ``"cuda"``, which raises where CUDA is absent; pass ``device="cpu"``),
 checks that the params live there and moves the tokens and the extra
-inputs there.
+inputs there. ``forward`` takes the kernels (``impl="flash"``, the default,
+forward-only) or the differentiable plain route the train step runs
+(``impl="xla"``); ``prefill`` and ``decode_step`` serve, with no autograd.
 """
 from __future__ import annotations
 
@@ -64,15 +66,15 @@ def _extra(cfg, extra, device) -> dict:
 
 
 def init(cfg, generator: "torch.Generator | None" = None,
-         device=DEFAULT_DEVICE):
+         device=DEFAULT_DEVICE, trainable: bool = False):
     """Random parameters for ``cfg`` on ``device``, drawn from
     ``generator`` (a ``torch.Generator`` on that device; default: one
-    seeded with 0)."""
+    seeded with 0). They are frozen for serving unless ``trainable``."""
     mod = _family_module(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    return mod.init_lm(cfg, generator, dev)
+    return mod.init_lm(cfg, generator, dev).requires_grad_(trainable)
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
@@ -113,12 +115,13 @@ def text_len(cfg, seq: int) -> int:
 
 
 def forward(cfg, params, tokens, extra: Optional[dict] = None,
-            device=DEFAULT_DEVICE):
+            device=DEFAULT_DEVICE, impl: str = "flash"):
     mod = _family_module(cfg)
     return mod.forward(params, _on(params, tokens, device), cfg,
-                       **_extra(cfg, extra, device))
+                       **_extra(cfg, extra, device), impl=impl)
 
 
+@torch.no_grad()
 def prefill(cfg, params, tokens, max_seq: int, extra: Optional[dict] = None,
             cache_dtype=torch.bfloat16, device=DEFAULT_DEVICE):
     mod = _family_module(cfg)
@@ -126,6 +129,7 @@ def prefill(cfg, params, tokens, max_seq: int, extra: Optional[dict] = None,
                        cache_dtype=cache_dtype, **_extra(cfg, extra, device))
 
 
+@torch.no_grad()
 def decode_step(cfg, params, cache, tokens, pos: int,
                 device=DEFAULT_DEVICE):
     mod = _family_module(cfg)

@@ -6,13 +6,17 @@ Mamba-1 recurrence (diagonal A, per-channel state):
 Mamba-2 (scalar A per head, outer-product state update):
     h_t = exp(dt_t A_h) h_{t-1} + dt_t · x_t ⊗ B_t ;  y_t = h_t C_t + D_h x_t
 
-A prompt (``state is None`` and L > 1) runs through the scan kernel
-(:func:`repro_torch.kernels.ops.mamba_scan`) on fp32 inputs, in both
-blocks: Mamba-1 as the reference's ``attn_impl="flash"`` route does, and
-Mamba-2 as the Mamba-1 scan of its ``H * Pd`` channels with each head's dt,
-A and D repeated over the head's ``Pd`` channels (the reference runs its
-plain recurrence there). Decode steps run the plain recurrences
-:func:`mamba1_scan` and :func:`mamba2_scan`, which stream their inputs in
+A prompt (``state is None`` and L > 1) takes one of two routes, chosen by
+the ``impl`` argument alone. ``"flash"`` (serving's route, the default)
+runs the scan kernel (:func:`repro_torch.kernels.ops.mamba_scan`) on fp32
+inputs in both blocks: Mamba-1 as the reference's ``attn_impl="flash"``
+route does, and Mamba-2 as the Mamba-1 scan of its ``H * Pd`` channels
+with each head's dt, A and D repeated over the head's ``Pd`` channels (the
+reference runs its plain recurrence there). The kernel is forward-only.
+``"xla"`` (training's route) runs the plain recurrences
+:func:`mamba1_scan` and :func:`mamba2_scan`, differentiable, over
+rematerialised 256-step chunks as the reference's ``_chunked_scan``.
+Decode steps run the plain recurrences too; they stream their inputs in
 the activation dtype, as the reference's do.
 """
 from __future__ import annotations
@@ -22,9 +26,10 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
-from .common import dense_init, dtype_of, param, rms_norm
+from .common import check_impl, dense_init, dtype_of, param, rms_norm
 
 
 def _dt_rank(cfg) -> int:
@@ -94,8 +99,23 @@ def causal_conv1d(x, w, b, state=None):
 # ---------------------------------------------------------------------- #
 #  Mamba-1
 # ---------------------------------------------------------------------- #
+def _chunked_scan(run, h0, L: int, chunk: int = 256):
+    """``run(h, lo, hi) -> (h, ys)`` over the steps ``[lo, hi)``, as the
+    reference's ``_chunked_scan``: with ``L`` a multiple of ``chunk`` and
+    longer than one, each chunk is rematerialised (the backward keeps only
+    the ``L / chunk`` boundary states, not the state at every step, and
+    recomputes inside the chunk); otherwise one plain pass."""
+    if L % chunk or L <= chunk:
+        return run(h0, 0, L)
+    h, ys = h0, []
+    for lo in range(0, L, chunk):
+        h, y = checkpoint(run, h, lo, lo + chunk, use_reentrant=False)
+        ys.append(y)
+    return h, torch.cat(ys, dim=1)
+
+
 def mamba1_scan(u, dt, A, Bm, Cm, D, h0=None):
-    """Sequential selective scan (the decode route).
+    """Sequential selective scan (the training and decode route).
 
     u: (B, L, Di); dt: (B, L, Di); A: (Di, N); Bm/Cm: (B, L, N); D: (Di,);
     h0: (B, Di, N) or None. The inputs stream in u's dtype and are upcast
@@ -107,21 +127,27 @@ def mamba1_scan(u, dt, A, Bm, Cm, D, h0=None):
     h = (torch.zeros((Bsz, Di, N), dtype=torch.float32, device=u.device)
          if h0 is None else h0)
     dt_s, B_s, C_s = (t.to(u.dtype) for t in (dt, Bm, Cm))
-    ys = []
-    for t in range(L):
-        u_t, dt_t, B_t, C_t = (a[:, t].float()
-                               for a in (u, dt_s, B_s, C_s))
-        dA = torch.exp(dt_t[..., None] * A[None])           # (B, Di, N)
-        dBu = (dt_t * u_t)[..., None] * B_t[:, None, :]     # (B, Di, N)
-        h = dA * h + dBu
-        ys.append(torch.einsum("bdn,bn->bd", h, C_t).to(u.dtype))
-    y = torch.stack(ys, dim=1).float() + u.float() * D[None, None, :]
+
+    def run(h, lo, hi):
+        ys = []
+        for t in range(lo, hi):
+            u_t, dt_t, B_t, C_t = (a[:, t].float()
+                                   for a in (u, dt_s, B_s, C_s))
+            dA = torch.exp(dt_t[..., None] * A[None])           # (B, Di, N)
+            dBu = (dt_t * u_t)[..., None] * B_t[:, None, :]     # (B, Di, N)
+            h = dA * h + dBu
+            ys.append(torch.einsum("bdn,bn->bd", h, C_t).to(u.dtype))
+        return h, torch.stack(ys, dim=1)
+
+    h, ys = _chunked_scan(run, h, L)
+    y = ys.float() + u.float() * D[None, None, :]
     return y, h
 
 
-def mamba1_block(p: Mamba1, x, cfg, state=None):
-    """x: (B, L, D). state: None, or dict(conv, ssm) for decode.
-    Returns (out, new_state)."""
+def mamba1_block(p: Mamba1, x, cfg, state=None, impl: str = "flash"):
+    """x: (B, L, D). state: None, or dict(conv, ssm) for decode; a prompt
+    takes the route ``impl`` names. Returns (out, new_state)."""
+    check_impl(impl)
     L = x.shape[1]
     Di, N = cfg.d_inner, cfg.ssm_state
     R = _dt_rank(cfg)
@@ -135,7 +161,7 @@ def mamba1_block(p: Mamba1, x, cfg, state=None):
     dt = dt_raw @ p.dt_proj.to(xs.dtype)
     dt = F.softplus(dt.float() + p.dt_bias[None, None, :])
     A = -torch.exp(p.A_log)
-    if state is None and L > 1:
+    if impl == "flash" and state is None and L > 1:
         # B and C are column slices of one projection: made contiguous
         y, h_last = kops.mamba_scan(xs.float(), dt, A,
                                     Bm.float().contiguous(),
@@ -188,40 +214,46 @@ class Mamba2(nn.Module):
 
 
 def mamba2_scan(u, dt, A, Bm, Cm, D, h0=None):
-    """Sequential Mamba-2 scan (the decode route, and the reference's
-    recurrence). u: (B, L, H, Pd); dt: (B, L, H); A, D: (H,); Bm/Cm:
-    (B, L, N); h0: (B, H, Pd, N) or None. The inputs stream in u's dtype and
-    are upcast per step; each step's ``h·C`` is rounded to u's dtype.
-    Returns (y (B, L, H, Pd) fp32, h_last (B, H, Pd, N) fp32)."""
+    """Sequential Mamba-2 scan (the training and decode route, and the
+    reference's recurrence). u: (B, L, H, Pd); dt: (B, L, H); A, D: (H,);
+    Bm/Cm: (B, L, N); h0: (B, H, Pd, N) or None. The inputs stream in u's
+    dtype and are upcast per step; each step's ``h·C`` is rounded to u's
+    dtype. Returns (y (B, L, H, Pd) fp32, h_last (B, H, Pd, N) fp32)."""
     Bsz, L, H, Pd = u.shape
     N = Bm.shape[-1]
     h = (torch.zeros((Bsz, H, Pd, N), dtype=torch.float32, device=u.device)
          if h0 is None else h0)
     dt_s, B_s, C_s = (t.to(u.dtype) for t in (dt, Bm, Cm))
-    ys = []
-    for t in range(L):
-        u_t, dt_t, B_t, C_t = (a[:, t].float()
-                               for a in (u, dt_s, B_s, C_s))
-        dA = torch.exp(dt_t * A[None])                       # (B, H)
-        dBu = (dt_t[..., None] * u_t)[..., None] * B_t[:, None, None, :]
-        h = dA[..., None, None] * h + dBu
-        ys.append(torch.einsum("bhpn,bn->bhp", h, C_t).to(u.dtype))
-    y = torch.stack(ys, dim=1).float() + u.float() * D[None, None, :, None]
+
+    def run(h, lo, hi):
+        ys = []
+        for t in range(lo, hi):
+            u_t, dt_t, B_t, C_t = (a[:, t].float()
+                                   for a in (u, dt_s, B_s, C_s))
+            dA = torch.exp(dt_t * A[None])                       # (B, H)
+            dBu = (dt_t[..., None] * u_t)[..., None] * B_t[:, None, None, :]
+            h = dA[..., None, None] * h + dBu
+            ys.append(torch.einsum("bhpn,bn->bhp", h, C_t).to(u.dtype))
+        return h, torch.stack(ys, dim=1)
+
+    h, ys = _chunked_scan(run, h, L)
+    y = ys.float() + u.float() * D[None, None, :, None]
     return y, h
 
 
-def mamba2_block(p: Mamba2, x, cfg, state=None):
-    """x: (B, L, D). state: None, or dict(conv, ssm) for decode.
-    Returns (out, new_state).
+def mamba2_block(p: Mamba2, x, cfg, state=None, impl: str = "flash"):
+    """x: (B, L, D). state: None, or dict(conv, ssm) for decode; a prompt
+    takes the route ``impl`` names. Returns (out, new_state).
 
-    A prompt goes through the scan kernel as a Mamba-1 scan over the
-    ``Di = H * Pd`` channels: dt rounded to the activation dtype (the
-    reference casts it to u's dtype before its scan) and repeated over each
-    head's Pd channels, ``A = -exp(A_log)`` and D likewise, every state row
-    the head's A. One rounding differs from the reference's recurrence: it
-    rounds each step's ``h·C`` to u's dtype before adding ``D⊙u``, the
-    kernel adds them in fp32. At fp32 that is no difference; in bf16 it
+    On the ``"flash"`` route a prompt goes through the scan kernel as a
+    Mamba-1 scan over the ``Di = H * Pd`` channels: dt rounded to the
+    activation dtype (the reference casts it to u's dtype before its scan)
+    and repeated over each head's Pd channels, ``A = -exp(A_log)`` and D
+    likewise, every state row the head's A. One rounding differs from the
+    reference's recurrence: it rounds each step's ``h·C`` to u's dtype
+    before adding ``D⊙u``, the kernel adds them in fp32. At fp32 that is no difference; in bf16 it
     stays inside the output's last rounding (one ulp)."""
+    check_impl(impl)
     B, L, _ = x.shape
     Di, N = cfg.d_inner, cfg.ssm_state
     Pd = cfg.ssm_head_dim
@@ -235,7 +267,7 @@ def mamba2_block(p: Mamba2, x, cfg, state=None):
     xs, Bm, Cm = xBC[..., :Di], xBC[..., Di:Di + N], xBC[..., Di + N:]
     dt = F.softplus(dt_raw.float() + p.dt_bias[None, None])   # (B, L, H)
     A = -torch.exp(p.A_log)
-    if state is None and L > 1:
+    if impl == "flash" and state is None and L > 1:
         dt_c = dt.to(x.dtype).float().repeat_interleave(Pd, dim=-1)
         A_c = A.repeat_interleave(Pd)[:, None].expand(Di, N).contiguous()
         y, h_last = kops.mamba_scan(xs.float().contiguous(), dt_c, A_c,

@@ -1,12 +1,14 @@
 """Attention-free Mamba-1 LM (falcon-mamba-7b): embed → N mamba blocks →
-head."""
+head. ``forward`` takes the scan route by its ``impl`` argument
+(``"xla"`` to train) and, with ``cfg.remat == "full"``, rematerialises
+each layer body."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from .common import (Embeddings, dtype_of, embed_tokens, param, rms_norm,
-                     unembed)
+from .common import (Embeddings, dtype_of, embed_tokens, layer_call, param,
+                     rms_norm, unembed)
 from .ssm import Mamba1, mamba1_block
 
 
@@ -57,11 +59,16 @@ def _head(params: MambaLM, x, cfg):
     return unembed(params.embed, x, cfg).float()
 
 
-def forward(params: MambaLM, tokens, cfg):
+def forward(params: MambaLM, tokens, cfg, impl: str = "flash"):
     x = embed_tokens(params.embed, tokens, cfg)
+
+    def body(x, lp):
+        h, _ = mamba1_block(lp.mamba, rms_norm(x, lp.norm, cfg.norm_eps), cfg,
+                            impl=impl)
+        return x + h
+
     for lp in params.layers:
-        h, _ = mamba1_block(lp.mamba, rms_norm(x, lp.norm, cfg.norm_eps), cfg)
-        x = x + h
+        x = layer_call(cfg, body, x, lp)
     return (_head(params, x, cfg),
             torch.zeros((), dtype=torch.float32, device=x.device))
 

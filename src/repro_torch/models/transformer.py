@@ -6,7 +6,9 @@ here they are ``nn.ModuleList``s walked by a Python loop. The MoE family
 runs its first ``first_dense_layers`` layers as a separate dense stack
 (``dense_layers``), and sums the MoE layers' load-balance losses. The VLM
 family prepends stub patch embeddings (``vision_embeds``, (B, V, D)) to
-the text tokens' embeddings.
+the text tokens' embeddings. ``forward`` takes the attention route by
+its ``impl`` argument (``"xla"`` to train) and, with ``cfg.remat ==
+"full"``, rematerialises each layer body.
 """
 from __future__ import annotations
 
@@ -15,8 +17,8 @@ from torch import nn
 
 from . import attention as attn_mod
 from . import moe as moe_mod
-from .common import (Embeddings, dtype_of, embed_tokens, param, rms_norm,
-                     unembed)
+from .common import (Embeddings, dtype_of, embed_tokens, layer_call, param,
+                     rms_norm, unembed)
 from .mlp import MLP, mlp
 
 
@@ -99,9 +101,10 @@ def _ffn(lp: Layer, x, cfg):
     return mlp(lp.mlp, hin), None
 
 
-def _layer_fwd(x, lp: Layer, cfg):
+def _layer_fwd(x, lp: Layer, cfg, impl: str = "flash"):
     h, kv = attn_mod.attention(lp.attn, rms_norm(x, lp.attn_norm,
-                                                 cfg.norm_eps), cfg)
+                                                 cfg.norm_eps), cfg,
+                               impl=impl)
     x = x + h
     h, aux = _ffn(lp, x, cfg)
     return x + h, aux, kv
@@ -114,15 +117,21 @@ def _embed(params: TransformerLM, tokens, cfg, vision_embeds):
     return x
 
 
-def forward(params: TransformerLM, tokens, cfg, vision_embeds=None):
+def forward(params: TransformerLM, tokens, cfg, vision_embeds=None,
+            impl: str = "flash"):
     """Teacher-forcing forward. tokens: (B, S[-V]) integer; VLM:
     ``vision_embeds`` (B, V, D) are prepended, giving total sequence S.
     Returns (logits (B, S, vocab) fp32, aux_loss fp32)."""
     x = _embed(params, tokens, cfg, vision_embeds)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body(x, lp):
+        x, aux, _ = _layer_fwd(x, lp, cfg, impl)
+        return x, aux
+
     for _, stack in params.stacks():
         for lp in stack:
-            x, aux, _ = _layer_fwd(x, lp, cfg)
+            x, aux = layer_call(cfg, body, x, lp)
             if aux is not None:
                 aux_total = aux_total + aux
     x = rms_norm(x, params.final_norm, cfg.norm_eps)

@@ -1,1 +1,2 @@
-"""Serving entry points (:mod:`repro_torch.train.serve`)."""
+"""Serving (:mod:`repro_torch.train.serve`) and training
+(:mod:`repro_torch.train.step`) entry points."""

@@ -7,6 +7,14 @@ installed::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
+Training on the card (the differentiable ``impl="xla"`` route, no
+kernel): every reduced architecture's train step against the CPU's from
+the same weights and batch (loss, ce, aux and grad_norm 1e-5 relative;
+every grad leaf within 1e-4 of its max |g|; new params within 2 lr and
+within 1e-5 on 99.9 % of the entries), and a restarted run equal to the
+clean one bit for bit with deterministic algorithms on (which needs
+``CUBLAS_WORKSPACE_CONFIG``, set here before CUDA starts).
+
 Tolerances: the GBDT kernel equals its plain version bit for bit. The
 attention and scan kernels sum in another order than their plain versions:
 2e-5 in fp32; in bf16 on the SIMT attention route one ulp of the output
@@ -17,14 +25,19 @@ matmuls run with TF32 off.
 """
 from __future__ import annotations
 
+import copy
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ARCH_IDS
 from repro_torch.kernels import flash_attention as fa, gbdt_predict as gp
 from repro_torch.kernels import mamba_scan as ms, ops, ref
 
 pytestmark = pytest.mark.cuda
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 F32 = dict(atol=2e-5, rtol=2e-5)
 BF16_ULP = dict(atol=1e-6, rtol=2.0 ** -7)
@@ -640,3 +653,100 @@ def test_new_golden_digests_on_card(key):
     path = pathlib.Path(__file__).parent / "golden" / "schedule_traces.json"
     assert digest == json.loads(path.read_text())["traces"][key]["digest"]
     assert gp.launches > before
+
+
+def _train_batch(cfg, rows=2, seq=32, seed=1) -> dict:
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    batch = dict(SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=seq, global_batch=rows,
+                                        seed=seed)).batch(0))
+    rng = np.random.default_rng(seed)
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = rng.standard_normal(
+            (rows, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (rows, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_reduced_train_step_alike_on_card_and_cpu(arch):
+    dev = _card()
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.convert import model_arrays, model_from_arrays
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import loss_fn, make_train_step
+    cfg = reduce_for_smoke(get_config(arch))
+    arrays = model_arrays(model.init(cfg, torch.Generator().manual_seed(2),
+                                     device="cpu"))
+    batch = _train_batch(cfg)
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=50)
+    before = (fa.launches, ms.launches)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        params = model_from_arrays(cfg, arrays, device=d)
+        params.requires_grad_(True)
+        loss, _ = loss_fn(params, batch, cfg, device=d)
+        named = dict(params.named_parameters())
+        grads = torch.autograd.grad(loss, list(named.values()))
+        _, _, m = make_train_step(cfg, ocfg, device=d)(
+            params, adamw.init(params, ocfg), batch)
+        out.append(({k: float(v) for k, v in m.items()},
+                    [g.cpu() for g in grads],
+                    [p.detach().cpu() for p in named.values()]))
+    assert (fa.launches, ms.launches) == before     # training: no kernel
+    (mc, gc, pc), (mh, gh, ph) = out
+    for k in ("loss", "ce", "aux", "grad_norm", "lr"):
+        assert abs(mc[k] - mh[k]) <= 1e-5 * abs(mh[k]), k
+    for a, b in zip(gc, gh):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    close = total = 0
+    for a, b in zip(pc, ph):
+        d_ = (a - b).abs()
+        assert float(d_.max()) <= 2e-3 * (1 + 1e-3)
+        close += int((d_ <= 1e-5).sum())
+        total += d_.numel()
+    assert close >= 0.999 * total
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "mixtral-8x22b"])
+def test_restart_on_the_card_is_bit_exact(arch, tmp_path):
+    """The embedding backward and the MoE's gathers accumulate by index:
+    with deterministic algorithms on they take deterministic kernels, so a
+    restarted run replays the clean one bit for bit."""
+    dev = _card()
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.dist import (FailureInjector, RunnerConfig,
+                                  TrainingRunner)
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    cfg = reduce_for_smoke(get_config(arch))
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(3),
+                        device=dev, trainable=True)
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=50)
+    step = make_train_step(cfg, ocfg, device=dev)
+    runs = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for label, fail in (("clean", ()), ("faulty", (6,))):
+            p = copy.deepcopy(params)
+            runner = TrainingRunner(
+                RunnerConfig(str(tmp_path / label), ckpt_interval=4), step,
+                lambda s: _train_batch(cfg, rows=4, seed=100 + s),
+                injector=FailureInjector(fail))
+            p, o, _ = runner.run(p, adamw.init(p, ocfg), 0, 10)
+            runs.append((p, o, runner.restarts))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (pa, oa, ra), (pb, ob, rb) = runs
+    assert (ra, rb) == (0, 1) and int(ob.step) == 10
+    for (n, a), b in zip(pa.named_parameters(), pb.parameters()):
+        assert torch.equal(a, b), n
+    for side in ("m", "v"):
+        for n, a in getattr(oa, side).items():
+            assert torch.equal(a, getattr(ob, side)[n]), (side, n)

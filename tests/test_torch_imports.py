@@ -1,9 +1,10 @@
 """Import hygiene and device defaults of the PyTorch port (repro_torch).
 
-The port must never pull in ``jax`` or the reference package ``repro``
-(``import repro.core`` alone drags JAX in), and its entry points must run
-on the card by default: on a machine without CUDA the default raises and
-names ``device="cpu"`` instead of quietly running on the CPU.
+The port must never pull in ``jax``, ``ml_dtypes`` or the reference
+package ``repro`` (``import repro.core`` alone drags JAX in), and its entry
+points must run on the card by default: on a machine without CUDA the
+default raises and names ``device="cpu"`` instead of quietly running on
+the CPU.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ def test_importing_every_port_module_leaves_jax_and_repro_out():
         "repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -50,7 +51,7 @@ def test_subpackage_imports_alone_without_jax_or_repro(package):
         f"mod = importlib.import_module({package!r})\n"
         "assert mod.__all__ and all(hasattr(mod, n) for n in mod.__all__)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -72,7 +73,8 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
                          [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_repro(path):
-    assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    assert not _imported_roots(path) & {"jax", "jaxlib", "repro",
+                                        "ml_dtypes"}
 
 
 def _entry_points():
@@ -85,7 +87,11 @@ def _entry_points():
     from repro_torch.configs.base import reduce_for_smoke
     from repro_torch.convert import model_from_arrays
     from repro_torch.models import model
+    from repro_torch.convert import opt_state_from_arrays
+    from repro_torch.examples import serve_decode, train_lm
+    from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train import serve
+    from repro_torch.train.step import loss_fn, make_train_step
     X = np.random.default_rng(0).normal(size=(8, 3))
     cfg = reduce_for_smoke(get_config("falcon-mamba-7b"))
     params = model.init(cfg, device="cpu")
@@ -116,6 +122,13 @@ def _entry_points():
         "make_serve_step": lambda: serve.make_serve_step(cfg),
         "make_prefill_step": lambda: serve.make_prefill_step(cfg, 8),
         "ColdStartSynthesizer": lambda: ColdStartSynthesizer(dvfs=V5E_DVFS),
+        "make_train_step": lambda: make_train_step(cfg, AdamWConfig()),
+        "loss_fn": lambda: loss_fn(params, {"tokens": tokens,
+                                            "labels": tokens}, cfg),
+        "opt_state_from_arrays": lambda: opt_state_from_arrays(
+            params, {"step": 0, "m": {}, "v": {}}, device="cuda"),
+        "train_lm": lambda: train_lm.main(["--steps", "1"]),
+        "serve_decode": lambda: serve_decode.main([]),
     }
 
 
@@ -127,7 +140,9 @@ def _entry_points():
                                   "model.prefill", "model.decode_step",
                                   "model_from_arrays", "greedy_generate",
                                   "make_serve_step", "make_prefill_step",
-                                  "ColdStartSynthesizer"])
+                                  "ColdStartSynthesizer", "make_train_step",
+                                  "loss_fn", "opt_state_from_arrays",
+                                  "train_lm", "serve_decode"])
 def test_default_device_is_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is usable")
