@@ -101,6 +101,21 @@ card, in phases:
    ce, aux, grad_norm 1e-5 relative; grads 1e-4 of each leaf's max), and a
    TrainingRunner run with an injected failure equals the clean run bit
    for bit on the card, with deterministic algorithms on.
+17. distribution on the card, over a one-rank NCCL group (a ``file://``
+   store): ``compressed_psum`` for 3 rounds of error feedback on a
+   gradient-shaped tree at SmolLM-360M's full width and depth (361 821 120
+   fp32 values from a seed), result and residual bit for bit with the CPU
+   port's (a gloo group in the same process) and the residual within
+   max|g|/127, ms per round; ``moe_sharded`` on a (1, 1) data x model
+   CUDA mesh over one Kimi-K2 MoE layer at full width (384 experts,
+   d_model 7168, the shared expert, bf16), bit for bit with ``moe``; the
+   elastic restore of SmolLM-360M's bf16 params and int8 AdamW state onto
+   a one-rank CUDA mesh by the spec trees, every shard bit for bit with
+   the saved arrays; and the dry run (``python -m
+   repro_torch.launch.dryrun``) as subprocesses on two production cells,
+   smollm-360m train_4k on 16x16 with ``--device cuda`` and ``--device
+   cpu`` (identical counts) and kimi-k2-1t-a32b decode_32k on 2x16x16
+   (``fsdp_over_pod``), each printed per device with its wall time.
 
 Ends with a JSON line of per-kernel numbers, the card line, and
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
@@ -262,6 +277,12 @@ FAMILY_TRAIN_ROWS, FAMILY_TRAIN_SEQ, FAMILY_TRAIN_LR = 2, 32, 1e-3
 #: with a failure at RESTART_FAIL, checkpointed every RESTART_INTERVAL
 RESTART_ARCHS = ("smollm-360m", "mixtral-8x22b")
 RESTART_STEPS, RESTART_INTERVAL, RESTART_FAIL = 10, 4, 6
+#: phase 17: compressed_psum's rounds over SmolLM-360M's gradient shapes;
+#: the Kimi-K2 MoE layer's tokens (rows, tokens); the dry-run cells
+PSUM_ROUNDS = 3
+DIST_MOE_TOKENS = (2, 64)
+DRYRUN_CELLS = (("smollm-360m", "train_4k", False, ("cuda", "cpu")),
+                ("kimi-k2-1t-a32b", "decode_32k", True, ("cuda",)))
 
 
 def _check(ok: bool, what: str) -> None:
@@ -1673,6 +1694,227 @@ def _restart_on_card(dev) -> None:
         torch.use_deterministic_algorithms(False)
 
 
+def _dist_group(tmp: str) -> None:
+    """A one-rank process group over a file store: NCCL for the card's
+    tensors, gloo for the host's."""
+    import torch.distributed as dist
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"file://{tmp}/store", rank=0,
+                            world_size=1)
+
+
+def _psum_on_card(dev, card) -> None:
+    """Phase 17(a): int8 compressed_psum with error feedback over the
+    one-rank group, on the card and on the host, bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.collectives import compressed_psum, init_error
+    from repro_torch.models import model
+    import torch.distributed as dist
+    cfg = get_config(TRAIN_ARCH)
+    shapes = {n: p.shape for n, p in model._family_module(cfg).LM(
+        cfg, "meta").named_parameters()}
+    n_vals = sum(int(np.prod(s)) for s in shapes.values())
+    _check(n_vals == TRAIN_PARAMS, f"{n_vals} gradient values")
+    gen = torch.Generator().manual_seed(17)
+    g_cpu = {n: torch.randn(s, generator=gen) for n, s in shapes.items()}
+    g_dev = {n: t.to(dev) for n, t in g_cpu.items()}
+    g_max = max(float(t.abs().max()) for t in g_cpu.values())
+    group = dist.group.WORLD
+    e_cpu, e_dev = init_error(g_cpu), init_error(g_dev)
+    ms = []
+    for r in range(PSUM_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o_dev, e_dev = compressed_psum(g_dev, group, e_dev)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        o_cpu, e_cpu = compressed_psum(g_cpu, group, e_cpu)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        for n in shapes:
+            _check(torch.equal(o_dev[n].cpu(), o_cpu[n]) and
+                   torch.equal(e_dev[n].cpu(), e_cpu[n]),
+                   f"compressed_psum round {r} {n}: card != host")
+        worst = max(float(t.abs().max()) for t in e_cpu.values())
+        _check(worst <= g_max / 127 + 1e-6, f"residual {worst} > bound")
+        print(f"   compressed_psum round {r}: {n_vals} fp32 values in "
+              f"{len(shapes)} leaves, card {ms[-1]:.3f} ms (host clock "
+              f"around a sync), host port {host_ms:.1f} ms; result and "
+              f"residual bit for bit; max|err| {worst:.3e} <= max|g|/127 "
+              f"{g_max / 127:.3e}", flush=True)
+    print(f"   compressed_psum ms per round on the card {ms} ({card})",
+          flush=True)
+
+
+def _moe_on_mesh(dev) -> None:
+    """Phase 17(b): Kimi-K2's MoE layer at full width, moe_sharded on a
+    (1, 1) CUDA mesh against moe, bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh, set_mesh
+    from repro_torch.models import moe as moe_mod
+    cfg = get_config("kimi-k2-1t-a32b")
+    p = moe_mod.MoE(cfg, dev)
+    p.reset_parameters(torch.Generator(device=dev).manual_seed(12))
+    B, S = DIST_MOE_TOKENS
+    x = torch.randn((B, S, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(13), device=dev).to(torch.bfloat16)
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    with torch.no_grad():
+        want, want_aux = moe_mod.moe(p, x, cfg)
+        with set_mesh(mesh):
+            got, aux = moe_mod.moe(p, x, cfg)
+    torch.cuda.synchronize()
+    _check(torch.equal(got.to_local(), want) and
+           torch.equal(aux.to_local(), want_aux),
+           "moe_sharded on a (1, 1) mesh != moe")
+    n_w = sum(t.numel() for t in p.parameters())
+    print(f"   moe_sharded, kimi-k2 MoE layer ({cfg.n_experts} experts, "
+          f"d_model {cfg.d_model}, shared expert, {n_w / 1e9:.3f} B bf16 "
+          f"params), {B}x{S} tokens on a (1, 1) cuda mesh: bit for bit "
+          f"with moe (aux {float(want_aux):.6f})", flush=True)
+    del p, x, got, want
+    _free()
+
+
+def _restore_on_mesh(dev, tmp: str) -> None:
+    """Phase 17(c): SmolLM-360M's bf16 params and int8 AdamW state saved,
+    then restored onto a one-rank CUDA mesh by the spec trees."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), param_dtype="bfloat16")
+    params = model._family_module(cfg).LM(cfg, "cpu")
+    named = dict(params.named_parameters())
+    gen = torch.Generator().manual_seed(21)
+
+    def bf16(shape):     # random finite bf16 bit patterns, drawn fast
+        return torch.randint(0, 2 ** 14, shape, dtype=torch.int16,
+                             generator=gen).view(torch.bfloat16)
+
+    def m_of(shape):
+        if not adamw.quantizable(shape):
+            return torch.rand(shape, generator=gen)
+        return adamw.QuantState(
+            q=torch.randint(-127, 128, shape, dtype=torch.int8,
+                            generator=gen),
+            scale=torch.rand(shape[:-1] + (shape[-1] // adamw.BLOCK,),
+                             generator=gen))
+    with torch.no_grad():
+        for p in named.values():
+            p.copy_(bf16(p.shape))
+    state = adamw.AdamWState(
+        step=torch.tensor(7, dtype=torch.int32),
+        m={n: m_of(tuple(p.shape)) for n, p in named.items()},
+        v={n: bf16(p.shape) if adamw.quantizable(p.shape) else
+           torch.rand(p.shape, generator=gen) for n, p in named.items()})
+    t0 = time.perf_counter()
+    ckpt.save(tmp, 0, {"params": params, "opt": state})
+    save_s = time.perf_counter() - t0
+    p_specs = model.named_specs(model.param_specs(cfg), params)
+    o_specs = adamw.state_specs(p_specs, {n: p.shape for n, p in
+                                          named.items()},
+                                adamw.AdamWConfig(state_dtype="int8"))
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    t0 = time.perf_counter()
+    got, _ = ckpt.restore(tmp, {"params": params, "opt": state}, mesh=mesh,
+                          specs={"params": p_specs, "opt": o_specs})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    saved = dict(ckpt._flatten({"params": params, "opt": state}))
+    back = dict(ckpt._flatten(got))
+    _check(set(saved) == set(back), "restored leaves")
+    n_dt = n_bytes = 0
+    for path, want in saved.items():
+        leaf = back[path]
+        if hasattr(leaf, "to_local"):
+            n_dt += 1
+            _check(leaf.device_mesh is mesh, f"{path} mesh")
+            leaf = leaf.to_local()
+        _check(leaf.device.type == dev.type and torch.equal(leaf.cpu(), want),
+               f"restored shard of {path}")
+        n_bytes += want.numel() * want.element_size()
+    _check(n_dt == len(saved), f"{n_dt} leaves placed by their spec")
+    print(f"   elastic restore: {len(saved)} leaves ({n_bytes / 1e9:.3f} GB: "
+          f"bf16 params, int8 m with its scales, bf16 v, step) saved in "
+          f"{save_s:.1f} s, restored onto a (1, 1) cuda mesh by the spec "
+          f"trees in {restore_s:.1f} s; every shard bit for bit", flush=True)
+
+
+def _dryrun_cells(tmp: str) -> None:
+    """Phase 17(d): the dry run on two production cells, each run in a
+    process of its own (a process opens one process group), all started
+    together."""
+    keys = ("flops", "bytes_accessed", "coll_bytes_raw",
+            "coll_bytes_modeled", "coll_counts", "compute_s", "memory_s",
+            "collective_s", "dominant")
+    procs = {}
+    t0 = time.perf_counter()
+    for arch, shape, multi_pod, devices in DRYRUN_CELLS:
+        for d in devices:
+            out = os.path.join(tmp, f"{arch}-{shape}-{d}.json")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--device", d,
+                   "--out", out] + (["--multi-pod"] if multi_pod else [])
+            procs[arch, shape, d] = (out, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, cwd=ROOT,
+                env=dict(os.environ, PYTHONPATH=str(ROOT / "src"))))
+    runs = {}
+    for (arch, shape, d), (out, proc) in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        wall = time.perf_counter() - t0
+        _check(proc.returncode == 0 and "0 errors" in stdout,
+               f"dry run {arch} {shape} --device {d}: {stdout[-1500:]} "
+               f"{stderr[-3000:]}")
+        (res,) = json.loads(pathlib.Path(out).read_text())
+        _check(res["status"] == "ok", f"dry run {arch} {shape} status")
+        rl, mem = res["roofline"], res["memory_per_device"]
+        by_kind = res["coll_by_kind"]
+        runs[arch, shape, d] = ({k: rl[k] for k in keys}, mem, by_kind)
+        print(f"   dry run {arch} {shape} on {res['mesh']} "
+              f"({res['n_chips']} ranks), --device {d}: per device "
+              f"flops {rl['flops']:.6e} (matmul), bytes "
+              f"{rl['bytes_accessed']:.6e}, collectives "
+              f"{rl['coll_counts']}, modeled bytes by kind {by_kind}, "
+              f"memory {mem}, {rl['dominant']}-bound on unfused bytes, not "
+              f"comparable with XLA's (compute "
+              f"{rl['compute_s']:.4f} s, memory {rl['memory_s']:.4f} s, "
+              f"collective {rl['collective_s']:.4f} s, v5e data model); "
+              f"trace {res['compile_s']} s + analysis "
+              f"{res['analysis_compile_s']} s; done {wall:.1f} s after "
+              f"the start", flush=True)
+    for arch, shape, _, devices in DRYRUN_CELLS:
+        if len(devices) > 1:
+            _check(runs[arch, shape, "cuda"] == runs[arch, shape, "cpu"],
+                   f"dry run {arch} {shape}: --device cuda != cpu")
+            print(f"   {arch} {shape}: identical counts with --device cuda "
+                  f"and --device cpu", flush=True)
+
+
+def _phase17(dev, card) -> None:
+    import tempfile
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    print(f"== phase 17: distribution on the card over a one-rank NCCL "
+          f"group; card {card}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        _dist_group(tmp)
+        try:
+            _psum_on_card(dev, card)
+            _moe_on_mesh(dev)
+            _restore_on_mesh(dev, os.path.join(tmp, "ckpt"))
+        finally:
+            dist.destroy_process_group()
+        _free()
+        _dryrun_cells(tmp)
+    print(f"   phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
@@ -1958,6 +2200,11 @@ def main() -> int:
     print(f"   phase 16: all {len(ARCH_IDS)} reduced archs train alike on "
           f"cuda and cpu (worst grad error {worst_grad:.3e} of its leaf's "
           f"max); {time.perf_counter() - t0:.1f} s in all", flush=True)
+    _free()
+    _reset(counters)
+    _phase17(dev, card)
+    _check(fa.launches == 0 and ms.launches == 0 and gp.launches == 0,
+           "phase 17 launched a kernel")
 
     t768 = timing[768]
     rows = [{

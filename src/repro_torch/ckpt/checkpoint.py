@@ -26,8 +26,14 @@ package restores in the other bit for bit::
 
 :func:`restore` returns new tensors on a ``device``; :func:`restore_into`
 copies a checkpoint into live tensors in place (the training runner's
-restart). Restoring onto another mesh belongs to distribution (ROADMAP
-§1 item 14).
+restart).
+
+Distribution: a DTensor leaf is saved as its global array (every rank
+takes part in the gather; rank 0 writes), in the same format.
+``restore(..., mesh=, specs=)`` places each leaf that has a spec as a
+DTensor laid out by the sanitized spec on any mesh — the elastic re-mesh:
+each rank reads the array, slices its own shard on the host and moves
+only that to the device; nothing is sent.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 __all__ = ["AsyncCheckpointer", "latest_step", "restore", "restore_into",
@@ -106,9 +113,13 @@ def _leaf_id(path: str) -> str:
 
 
 def _to_savable(leaf) -> tuple[np.ndarray, str]:
-    """The leaf as a numpy array numpy can store, and its dtype name."""
+    """The leaf as a numpy array numpy can store, and its dtype name (a
+    DTensor as its global array)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = leaf.detach()
+        if hasattr(t, "full_tensor"):
+            t = t.full_tensor()
+        t = t.cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         arr = t.numpy()
@@ -129,16 +140,30 @@ def _from_savable(arr: np.ndarray, name: str) -> torch.Tensor:
 
 def save(ckpt_dir: str, step: int, tree: Any,
          extra: Optional[dict] = None) -> str:
-    """Synchronous atomic checkpoint save; returns the step's directory."""
+    """Synchronous atomic checkpoint save; returns the step's directory.
+    Under a process group every rank calls it (a DTensor leaf is gathered)
+    and rank 0 writes; the others wait for it."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if any(hasattr(leaf, "full_tensor") for _, leaf in _flatten(tree)) \
+            and dist.is_initialized():
+        arrays = [(parts, _to_savable(leaf)) for parts, leaf in
+                  _flatten(tree)]
+        if dist.get_rank() == 0:
+            _write(final, step, arrays, extra)
+        dist.barrier()
+        return final
+    return _write(final, step, ((parts, _to_savable(leaf))
+                                for parts, leaf in _flatten(tree)), extra)
+
+
+def _write(final: str, step: int, arrays, extra) -> str:
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": {}, "extra": extra or {}}
-    for parts, leaf in _flatten(tree):
+    for parts, (arr, dtype_name) in arrays:
         path = _path_str(parts)
-        arr, dtype_name = _to_savable(leaf)
         fname = _leaf_id(path) + ".npy"
         np.save(os.path.join(tmp, fname), arr)
         manifest["leaves"][path] = {
@@ -187,17 +212,66 @@ def _load(d: str, manifest: dict, path: str, verify: bool) -> torch.Tensor:
     return _from_savable(arr, meta["dtype"])
 
 
+def _spec_key(path: str) -> str:
+    """A path with dotted parameter names split as a module's are, so a
+    spec keyed by ``layers.3.attn.wq`` finds a module's leaf."""
+    return path.replace(".", _SEP)
+
+
+def _spec_paths(specs, prefix=()) -> dict:
+    """{spec key: spec} of a spec tree (dicts, NamedTuples; the specs are
+    tuples themselves)."""
+    from ..models.common import is_spec
+    if is_spec(specs):
+        return {_spec_key(_path_str(prefix)): specs}
+    out = {}
+    if isinstance(specs, dict):
+        for k, v in specs.items():
+            out.update(_spec_paths(v, prefix + (str(k),)))
+    elif _is_namedtuple(specs):
+        for f in specs._fields:
+            out.update(_spec_paths(getattr(specs, f), prefix + (f,)))
+    return out
+
+
+def _shard_of(t: torch.Tensor, spec, mesh, device):
+    """The DTensor laid out as ``spec`` (sanitized) on ``mesh`` whose
+    shard on this rank is sliced from the host array ``t``: only the
+    shard is moved to ``device``."""
+    from ..models.common import (placements, sanitize_spec, shard_bounds,
+                                 sharded)
+    spec = sanitize_spec(spec, tuple(t.shape), mesh)
+    if mesh.get_coordinate() is None:        # a rank outside the mesh
+        local = t.new_empty((0,))
+    else:
+        n, lo = shard_bounds(t.shape, mesh, placements(mesh, spec))
+        local = t[tuple(slice(a, a + k) for a, k in zip(lo, n))]
+    return sharded(local.contiguous().to(device), t.shape, mesh, spec)
+
+
 def restore(ckpt_dir: str, target: Any, step: Optional[int] = None,
-            device=None, verify: bool = True):
+            device=None, verify: bool = True, mesh=None, specs: Any = None):
     """Read the checkpoint at ``step`` (default: the latest) in the
     structure of ``target``. Returns (tree, manifest): the tree's leaves
     are new tensors on ``device`` (default: each target tensor's device,
     the CPU for other leaves); a module in ``target`` comes back as nested
-    dicts of its parameters. Raises ``IOError`` on a checksum mismatch."""
+    dicts of its parameters. With ``mesh`` and ``specs`` (a tree of specs
+    by the target's paths: dicts, NamedTuples, or parameter names) each
+    leaf with a spec is a DTensor on ``mesh`` laid out by its sanitized
+    spec, its shard on ``device`` (default: the mesh's device type) —
+    onto ANY mesh (elastic restore). Raises ``IOError`` on a checksum
+    mismatch."""
     d, manifest = _open(ckpt_dir, step)
+    by_path = _spec_paths(specs) if mesh is not None and specs is not None \
+        else {}
 
     def one(parts, leaf):
-        t = _load(d, manifest, _path_str(parts), verify)
+        path = _path_str(parts)
+        t = _load(d, manifest, path, verify)
+        spec = by_path.get(_spec_key(path))
+        if spec is not None:
+            dev = device if device is not None else mesh.device_type
+            return _shard_of(t, spec, mesh, dev)
         dev = device if device is not None else (
             leaf.device if isinstance(leaf, torch.Tensor) else "cpu")
         return t.to(dev)

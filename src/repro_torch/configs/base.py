@@ -6,10 +6,12 @@ The training path reads ``remat`` (``"full"`` rematerialises each layer
 body, :func:`repro_torch.models.common.layer_call`), ``grad_accum_dtype``
 (the microbatch gradient accumulator of
 :func:`repro_torch.train.step.make_train_step`) and ``attn_impl`` (a config
-asking for ``"flash"`` cannot train). Fields that steer the reference's
-sharding, scan and dry-run (``scan_layers``, ``opt_state_dtype``,
-``fsdp_over_pod``) are carried but read by nothing the port has yet
-(distribution and the dry-run, ROADMAP §1 item 14)."""
+asking for ``"flash"`` cannot train). The dry run
+(:mod:`repro_torch.launch.dryrun`) reads ``opt_state_dtype`` (the AdamW
+state it lays out) and ``fsdp_over_pod`` (FSDP over ``('data', 'pod')``);
+``scan_layers`` is carried for parity only: the port runs its layers in a
+Python loop, and the dry run's depth plan sets it False, as the
+reference's does."""
 from __future__ import annotations
 
 import dataclasses

@@ -10,10 +10,12 @@ the codebase actually implements:
   and ``<arch>:train_step`` for every registered config, with
   ``flops``/``hbm_bytes``/``coll_bytes`` taken from the
   :mod:`repro_torch.roofline.analysis` analytic counters (``model_flops``
-  — 6·N·D train / 2·N·D forward — plus ``ssm_scan_correction``). The
-  reference can refine them from an XLA AOT artifact; the port takes the
-  analytic terms, which are the reference's own result without an artifact
-  (refinement from a compiled artifact comes with ROADMAP §1.14);
+  — 6·N·D train / 2·N·D forward — plus ``ssm_scan_correction``).
+  ``derive_counters(..., compiled=)`` takes a dry-run trace record
+  (:mod:`repro_torch.launch.dryrun`) where the reference takes an XLA AOT
+  artifact, and behaves as the reference's does: its refinement never
+  applies (see :func:`aot_counters`), so the counters are the analytic
+  terms either way;
 * standalone kernel apps for the repo's kernels themselves
   (``flash_attention`` / ``mamba_scan`` / ``moe_dispatch``);
 * kind-specific **latent knobs** so the simulator's nonlinearities stay
@@ -48,7 +50,7 @@ import numpy as np
 
 from ..configs import _ARCH_IDS, get_config
 from ..configs.base import ModelConfig, ShapeSpec
-from ..roofline.analysis import model_flops, ssm_scan_correction
+from ..roofline.analysis import costs_of, model_flops, ssm_scan_correction
 
 from .features import profile_features
 from .simulator import AppProfile, Testbed
@@ -199,19 +201,41 @@ def derive_counters(cfg: ModelConfig, phase: str,
                     n_chips: Optional[int] = None,
                     compiled=None) -> dict[str, float]:
     """Per-chip ``{flops, hbm_bytes, coll_bytes, n_chips}`` for one
-    (config, phase) app, from the analytic terms. ``compiled`` is the
-    reference's compiled-artifact refinement; only ``None`` is accepted
-    until that half is ported (ROADMAP §1.14)."""
-    if compiled is not None:
-        raise NotImplementedError(
-            "counters from a compiled artifact need the dry-run half of the "
-            "roofline analysis, which is not ported yet (ROADMAP §1.14)")
+    (config, phase) app. ``compiled`` optionally refines flops/bytes from
+    a dry-run trace record (:func:`aot_counters`); the analytic terms are
+    the fallback."""
     n = chips_for(cfg, phase) if n_chips is None else int(n_chips)
     flops, hbm, coll = _total_counters(cfg, phase)
     flops, hbm = flops / n, hbm / n
+    if compiled is not None:
+        refined = aot_counters(compiled, n_chips=n)
+        if refined is not None:
+            flops, hbm = refined
     coll_chip = coll * (n - 1) / n if n > 1 else 0.0
     return {"flops": flops, "hbm_bytes": hbm, "coll_bytes": coll_chip,
             "n_chips": n}
+
+
+def aot_counters(compiled, n_chips: int = 1
+                 ) -> Optional[tuple[float, float]]:
+    """Optional refinement: per-chip (flops, bytes) from a dry-run trace
+    record's costs (:func:`repro_torch.roofline.analysis.costs_of`).
+    Returns ``None`` whenever the record carries no usable cost data —
+    callers fall back to the analytic terms.
+
+    A reference quirk kept for parity: the reference reads the bytes
+    under the key ``"bytes accessed"``, but ``costs_of`` returns them
+    under ``"bytes"``, so the bytes read as 0 and the refinement never
+    applies. The port reads the same key and returns ``None`` alike."""
+    try:
+        c = costs_of(compiled)
+        flops = float(c.get("flops", 0.0) or 0.0)
+        nbytes = float(c.get("bytes accessed", 0.0) or 0.0)
+    except Exception:
+        return None
+    if flops <= 0.0 or nbytes <= 0.0:
+        return None
+    return flops / n_chips, nbytes / n_chips
 
 
 def _knobs(cfg: ModelConfig, phase: str) -> dict[str, float]:
@@ -224,8 +248,8 @@ def _knobs(cfg: ModelConfig, phase: str) -> dict[str, float]:
 
 def derive_app(arch: str, phase: str, compiled=None) -> AppProfile:
     """One deterministic ``<arch>:<phase>`` profile. Same inputs →
-    bit-identical dataclass (no RNG is consumed). ``compiled`` must be
-    ``None`` (see :func:`derive_counters`)."""
+    bit-identical dataclass (no RNG is consumed). ``compiled``: an
+    optional dry-run trace record (see :func:`derive_counters`)."""
     if phase not in PHASES:
         raise KeyError(f"unknown phase {phase!r}; known: {PHASES}")
     key = arch.replace(".", "_").replace("-", "_")

@@ -1,7 +1,8 @@
 """Distributed-substrate utilities: the checkpointed restart loop of
-training (:class:`TrainingRunner`, :class:`FailureInjector`) and the
-straggler monitor of the federation layer. The compressed collectives come
-with distribution (ROADMAP §1 item 14)."""
+training (:class:`TrainingRunner`, :class:`FailureInjector`), the
+straggler monitor of the federation layer, and the int8 compressed
+collectives with error feedback (:mod:`.collectives`, imported from
+there, as in the reference)."""
 from .fault_tolerance import (FailureInjector, RunnerConfig,
                               SimulatedFailure, StragglerMonitor,
                               TrainingRunner)

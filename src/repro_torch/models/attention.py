@@ -31,7 +31,9 @@ from torch import nn
 
 from ..kernels import ops as kops
 from ..kernels.ref import NEG_INF
-from .common import apply_rope, check_impl, dense_init, dtype_of, param
+from .common import (FSDP, TP, P, apply_rope, assign, check_impl,
+                     current_mesh, dense_init, dtype_of, matmul,
+                     maybe_shard, param, residual, sanitize_spec, shard_map)
 
 
 class Attention(nn.Module):
@@ -67,19 +69,39 @@ def init_attention(cfg, generator, device):
     return a
 
 
+def spec_attention(cfg):
+    kv_tp = TP if cfg.n_kv_heads % 16 == 0 else None
+    p = {"wq": P(FSDP, TP), "wk": P(FSDP, kv_tp), "wv": P(FSDP, kv_tp),
+         "wo": P(TP, FSDP)}
+    if cfg.qkv_bias:
+        p["bq"] = P(TP)
+        p["bk"] = P(kv_tp)
+        p["bv"] = P(kv_tp)
+    return p
+
+
+def _heads(t, H: int, hd: int):
+    """(B, S, H*hd) → (B, S, H, hd). Under a mesh the projection's
+    ``model`` shards are gathered first: the head count need not divide
+    the ``model`` axis (15 heads on 16), and the key-parallel attention
+    wants q whole on every ``model`` rank."""
+    t = maybe_shard(t, P(("pod", FSDP), None, None))
+    return t.reshape(t.shape[0], t.shape[1], H, hd)
+
+
 def _project_qkv(p: Attention, x, cfg, positions):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = x @ p.wq.to(x.dtype)
-    k = x @ p.wk.to(x.dtype)
-    v = x @ p.wv.to(x.dtype)
+    q = matmul(x, p.wq.to(x.dtype))
+    k = matmul(x, p.wk.to(x.dtype))
+    v = matmul(x, p.wv.to(x.dtype))
     if cfg.qkv_bias:
         q = q + p.bq.to(x.dtype)
         k = k + p.bk.to(x.dtype)
         v = v + p.bv.to(x.dtype)
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    q = _heads(q, cfg.n_heads, hd)
+    k = _heads(k, cfg.n_kv_heads, hd)
+    v = _heads(v, cfg.n_kv_heads, hd)
     if positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -120,7 +142,7 @@ def attention(p: Attention, x, cfg, positions=None, causal: bool = True,
         mask = (causal_mask(S, S, cfg.sliding_window, device=x.device)[0]
                 if causal else None)
         out = _plain_gqa(q, k.transpose(1, 2), v.transpose(1, 2), mask)
-    return out @ p.wo.to(x.dtype), (k, v)
+    return residual(matmul(out, p.wo.to(x.dtype))), (k, v)
 
 
 def _sdpa_chunked(q, k, v, cfg, chunk: int = 2048):
@@ -144,10 +166,26 @@ def _project_cross(p: Attention, x, source, cfg):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     src = source.to(x.dtype)
-    q = (x @ p.wq.to(x.dtype)).reshape(B, S, cfg.n_heads, hd)
-    k = (src @ p.wk.to(x.dtype)).reshape(B, -1, cfg.n_kv_heads, hd)
-    v = (src @ p.wv.to(x.dtype)).reshape(B, -1, cfg.n_kv_heads, hd)
+    q = _heads(matmul(x, p.wq.to(x.dtype)), cfg.n_heads, hd)
+    k = _heads(matmul(src, p.wk.to(x.dtype)), cfg.n_kv_heads, hd)
+    v = _heads(matmul(src, p.wv.to(x.dtype)), cfg.n_kv_heads, hd)
+    if current_mesh() is not None:
+        # their grads come back transposed; DTensor's view of a reshape's
+        # grad fails on a non-contiguous shard
+        k, v = _ContiguousGrad.apply(k), _ContiguousGrad.apply(v)
     return q, k, v
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
 
 
 def cross_attention(p: Attention, x, source, cfg, impl: str = "flash"):
@@ -163,7 +201,7 @@ def cross_attention(p: Attention, x, source, cfg, impl: str = "flash"):
         out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
     else:
         out = _plain_gqa(q, k.transpose(1, 2), v.transpose(1, 2))
-    return out @ p.wo.to(x.dtype)
+    return residual(matmul(out, p.wo.to(x.dtype)))
 
 
 def cross_attention_decode(p: Attention, x, source, cfg):
@@ -171,7 +209,7 @@ def cross_attention_decode(p: Attention, x, source, cfg):
     torch (:func:`_plain_gqa`)."""
     q, k, v = _project_cross(p, x, source, cfg)
     out = _plain_gqa(q, k.transpose(1, 2), v.transpose(1, 2))
-    return out @ p.wo.to(x.dtype)
+    return residual(matmul(out, p.wo.to(x.dtype)))
 
 
 def _plain_gqa(q, k, v, valid=None):
@@ -180,6 +218,8 @@ def _plain_gqa(q, k, v, valid=None):
     with preferred_element_type=float32), probabilities rounded to q's
     dtype. ``valid`` masks keys: (Sk,) for every query alike, or (S, Sk)
     per query. Returns (B, S, Hq*hd) in q's dtype."""
+    if current_mesh() is not None:
+        return _key_parallel_gqa(q, k, v, valid)
     B, S, Hq, hd = q.shape
     K, Sk = k.shape[1], k.shape[2]
     G = Hq // K
@@ -197,6 +237,51 @@ def _plain_gqa(q, k, v, valid=None):
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq * hd)
 
 
+def _key_parallel_gqa(q, k, v, valid=None):
+    """:func:`_plain_gqa` under a mesh, with the reference's key-sequence
+    parallelism: q is whole on every ``model`` rank, k and v are sharded
+    over ``model`` on the key dim (no config's kv-head count divides 16),
+    and each rank runs the attention over its keys: the softmax max is
+    all-reduced (a max, without gradient), and the unnormalised output and
+    the denominator are summed over the key shards (all-reduces), in place
+    of gathering the scores. The same function; the rounding of its last
+    steps differs from the meshless path's."""
+    B, S, Hq, hd = q.shape
+    K = k.shape[1]
+    G = Hq // K
+    mesh = current_mesh()
+    dp = sanitize_spec(P(("pod", FSDP)), (B,), mesh)[0]
+    rows = P(dp, None, None, None)
+    keys = sanitize_spec(P(dp, None, TP, None), tuple(k.shape), mesh)
+    group = mesh.get_group(TP) if keys[2] else None
+
+    def local(q, k, v, *mask):
+        Bl, Sl, Skl = q.shape[0], q.shape[1], k.shape[2]
+        qg = q.reshape(Bl, Sl, K, G, hd).permute(0, 2, 3, 1, 4).reshape(
+            Bl, K, G * Sl, hd).float()
+        s = (qg @ k.to(q.dtype).float().transpose(-1, -2)) / math.sqrt(hd)
+        if mask:
+            s = torch.where(mask[0], s.view(Bl, K, G, Sl, Skl),
+                            NEG_INF).view(Bl, K, G * Sl, Skl)
+        m = s.amax(dim=-1, keepdim=True).detach()
+        if group is not None:
+            from torch.distributed import _functional_collectives as funcol
+            m = funcol.all_reduce(m, "max", group)
+        e = torch.exp(s - m)
+        o = e.to(q.dtype).float() @ v.to(q.dtype).float()
+        return o, e.sum(dim=-1, keepdim=True)
+
+    args, in_specs = [q, k, v], [P(dp, None, None, None), keys, keys]
+    if valid is not None:
+        args.append(valid)
+        in_specs.append(P(*([None] * (valid.dim() - 1)), keys[2]))
+    part = (TP,) if group is not None else ()
+    o, den = shard_map(local, mesh, in_specs, [rows, rows],
+                       out_partial=(part, part))(*args)
+    out = (o / den).to(q.dtype).reshape(B, K, G, S, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq * hd)
+
+
 def attention_decode(p: Attention, x, cache_k, cache_v, pos: int, cfg):
     """Single-token decode with a KV cache.
 
@@ -210,8 +295,9 @@ def attention_decode(p: Attention, x, cache_k, cache_v, pos: int, cfg):
     S_max = cache_k.shape[2]
     ring = cfg.sliding_window is not None and S_max <= cfg.sliding_window
     write_idx = pos % S_max if ring else pos
-    cache_k[:, :, write_idx] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, :, write_idx] = v[:, 0].to(cache_v.dtype)
+    slot = (slice(None), slice(None), write_idx)
+    assign(cache_k, slot, k[:, 0].to(cache_k.dtype))
+    assign(cache_v, slot, v[:, 0].to(cache_v.dtype))
     kj = torch.arange(S_max, device=x.device)
     if ring:
         valid = (kj <= pos) | (pos >= S_max)  # warmup, then all slots live
@@ -220,4 +306,4 @@ def attention_decode(p: Attention, x, cache_k, cache_v, pos: int, cfg):
         if cfg.sliding_window is not None:
             valid = valid & (kj > pos - cfg.sliding_window)
     out = _plain_gqa(q, cache_k, cache_v, valid)
-    return out @ p.wo.to(x.dtype), cache_k, cache_v
+    return residual(matmul(out, p.wo.to(x.dtype))), cache_k, cache_v

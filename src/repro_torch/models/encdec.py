@@ -26,9 +26,10 @@ import torch
 from torch import nn
 
 from . import attention as attn_mod
-from .common import (Embeddings, LayerNorm, embed_tokens, layer_call, ln,
-                     sinusoidal_positions, unembed)
-from .mlp import MLP, mlp
+from .common import (FSDP, TP, Embeddings, LayerNorm, P, assign,
+                     embed_tokens, layer_call, ln, mesh_zeros, podify,
+                     sinusoidal_positions, spec_embeddings, unembed)
+from .mlp import MLP, mlp, spec_mlp
 
 
 class EncoderLayer(nn.Module):
@@ -98,6 +99,32 @@ def init_lm(cfg, generator, device) -> EncDecLM:
     m = EncDecLM(cfg, device)
     m.reset_parameters(generator)
     return m
+
+
+def _spec_ln():
+    return {"w": P(None), "b": P(None)}
+
+
+def lm_param_specs(cfg):
+    return {
+        "embed": spec_embeddings(cfg),
+        "enc_layers": {"attn_norm": _spec_ln(), "mlp_norm": _spec_ln(),
+                       "attn": attn_mod.spec_attention(cfg),
+                       "mlp": spec_mlp(gelu=True)},
+        "dec_layers": {"self_norm": _spec_ln(), "cross_norm": _spec_ln(),
+                       "mlp_norm": _spec_ln(),
+                       "self_attn": attn_mod.spec_attention(cfg),
+                       "cross_attn": attn_mod.spec_attention(cfg),
+                       "mlp": spec_mlp(gelu=True)},
+        "enc_final_norm": _spec_ln(),
+        "final_norm": _spec_ln(),
+    }
+
+
+def cache_specs(cfg):
+    return {"k": P(None, FSDP, None, TP, None),
+            "v": P(None, FSDP, None, TP, None),
+            "enc_out": P(FSDP, None, None)}
 
 
 def _need_frames(frames, what):
@@ -171,16 +198,19 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
 
 
 def prefill(params: EncDecLM, tokens, cfg, max_seq: int, frames=None,
-            cache_dtype=torch.bfloat16):
+            cache_dtype=torch.bfloat16, impl: str = "flash"):
     _need_frames(frames, "prefill")
-    enc_out = encode(params, frames, cfg)
+    enc_out = encode(params, frames, cfg, impl)
     x = embed_tokens(params.embed, tokens, cfg)
-    cache = init_cache(cfg, x.shape[0], max_seq, cache_dtype, x.device)
+    cache = mesh_zeros(lambda dev: init_cache(cfg, x.shape[0], max_seq,
+                                              cache_dtype, dev),
+                       podify(cache_specs(cfg)), x.device)
     S = x.shape[1]
     for i, lp in enumerate(params.dec_layers):
-        x, (k, v) = _dec_layer(x, lp, enc_out, cfg)
-        cache["k"][i, :, :, :S] = k.transpose(1, 2)
-        cache["v"][i, :, :, :S] = v.transpose(1, 2)
+        x, (k, v) = _dec_layer(x, lp, enc_out, cfg, impl)
+        rows = (i, slice(None), slice(None), slice(0, S))
+        assign(cache["k"], rows, k.transpose(1, 2))
+        assign(cache["v"], rows, v.transpose(1, 2))
     cache["enc_out"] = enc_out.to(cache_dtype)
     return _head(params, x, cfg), cache
 

@@ -21,10 +21,11 @@ import torch
 from torch import nn
 
 from . import attention as attn_mod
-from .common import (Embeddings, dtype_of, embed_tokens, layer_call, param,
-                     rms_norm, unembed)
-from .mlp import MLP, mlp
-from .ssm import Mamba2, mamba2_block
+from .common import (FSDP, TP, Embeddings, P, assign, dtype_of,
+                     embed_tokens, layer_call, mesh_zeros, param, podify,
+                     rms_norm, spec_embeddings, unembed)
+from .mlp import MLP, mlp, spec_mlp
+from .ssm import Mamba2, mamba2_block, spec_mamba
 from .transformer import cache_write
 
 
@@ -100,6 +101,25 @@ def init_lm(cfg, generator, device) -> HybridLM:
     return m
 
 
+def lm_param_specs(cfg):
+    p = {"embed": spec_embeddings(cfg),
+         "layers": {"norm": P(None), "mamba": spec_mamba(cfg)},
+         "final_norm": P(None)}
+    if cfg.hybrid_attn_period:
+        p["shared_attn"] = {"attn_norm": P(None), "mlp_norm": P(None),
+                            "attn": attn_mod.spec_attention(cfg),
+                            "mlp": spec_mlp()}
+    return p
+
+
+def cache_specs(cfg):
+    p = {"conv": P(None, FSDP, None, TP), "ssm": P(None, FSDP, TP, None, None)}
+    if n_attn_applications(cfg):
+        p["attn_k"] = P(None, FSDP, None, TP, None)
+        p["attn_v"] = P(None, FSDP, None, TP, None)
+    return p
+
+
 def _segments(cfg):
     """(first, end) layer index of each segment: one per attention
     application, ``period`` blocks each, then the tail if any."""
@@ -143,8 +163,8 @@ def _run(params: HybridLM, x, cfg, cache=None, impl: str = "flash"):
                 x, _ = layer_call(cfg, block, x, params.layers[i])
                 continue
             x, st = block(x, params.layers[i])
-            cache["conv"][i] = st["conv"]
-            cache["ssm"][i] = st["ssm"]
+            assign(cache["conv"], (i,), st["conv"])
+            assign(cache["ssm"], (i,), st["ssm"])
         if a < n_apps:
             x, (k, v) = _shared_fwd(params.shared_attn, x, cfg, impl)
             if cache is not None:
@@ -186,10 +206,12 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
 
 
 def prefill(params: HybridLM, tokens, cfg, max_seq: int,
-            cache_dtype=torch.bfloat16):
+            cache_dtype=torch.bfloat16, impl: str = "flash"):
     x = embed_tokens(params.embed, tokens, cfg)
-    cache = init_cache(cfg, x.shape[0], max_seq, cache_dtype, x.device)
-    x = _run(params, x, cfg, cache)
+    cache = mesh_zeros(lambda dev: init_cache(cfg, x.shape[0], max_seq,
+                                              cache_dtype, dev),
+                       podify(cache_specs(cfg)), x.device)
+    x = _run(params, x, cfg, cache, impl)
     return _head(params, x, cfg), cache
 
 
@@ -206,8 +228,8 @@ def decode_step(params: HybridLM, cache, tokens, pos: int, cfg):
                 state={"conv": cache["conv"][i].to(x.dtype),
                        "ssm": cache["ssm"][i]})
             x = x + h
-            cache["conv"][i] = st["conv"]
-            cache["ssm"][i] = st["ssm"]
+            assign(cache["conv"], (i,), st["conv"])
+            assign(cache["ssm"], (i,), st["ssm"])
         if a < n_apps:
             sp = params.shared_attn
             h, _, _ = attn_mod.attention_decode(

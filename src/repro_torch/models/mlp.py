@@ -5,7 +5,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import dense_init, dtype_of, param
+from .common import (FSDP, TP, P, dense_init, dtype_of, matmul, param,
+                     residual)
 
 
 class MLP(nn.Module):
@@ -36,10 +37,18 @@ def init_mlp(cfg, generator, device, d_ff=None, gelu: bool = False):
     return m
 
 
+def spec_mlp(gelu: bool = False):
+    if gelu:
+        return {"w_in": P(FSDP, TP), "w_out": P(TP, FSDP)}
+    return {"w_gate": P(FSDP, TP), "w_up": P(FSDP, TP),
+            "w_down": P(TP, FSDP)}
+
+
 def mlp(p: MLP, x):
     if hasattr(p, "w_in"):
-        h = F.gelu(x @ p.w_in.to(x.dtype), approximate="tanh")  # jax default
-        return h @ p.w_out.to(x.dtype)
-    g = x @ p.w_gate.to(x.dtype)
-    u = x @ p.w_up.to(x.dtype)
-    return (F.silu(g) * u) @ p.w_down.to(x.dtype)
+        h = F.gelu(matmul(x, p.w_in.to(x.dtype)),
+                   approximate="tanh")                 # jax's default
+        return residual(matmul(h, p.w_out.to(x.dtype)))
+    g = matmul(x, p.w_gate.to(x.dtype))
+    u = matmul(x, p.w_up.to(x.dtype))
+    return residual(matmul(F.silu(g) * u, p.w_down.to(x.dtype)))

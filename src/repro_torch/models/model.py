@@ -7,6 +7,8 @@
   init_cache(cfg, batch, max_seq, dtype, device)       → cache
   extra_inputs(cfg, batch, seq, mode, generator, …)    → modality stubs
   text_len(cfg, seq)
+  param_specs(cfg) / cache_specs(cfg)                  → spec trees
+  named_specs(spec_tree, params)                       → {param name: spec}
 
 The dense, moe and vlm families are :mod:`.transformer`, ssm (Mamba-1) is
 :mod:`.ssm_lm`, hybrid (Mamba-2 with a shared attention block) is
@@ -107,6 +109,34 @@ def extra_inputs(cfg, batch: int, seq: int, mode: str = "train",
     return out
 
 
+def param_specs(cfg):
+    """The parameter spec tree: the reference's, each stacked subtree's
+    leading layer entry dropped (the port keeps one module per layer)."""
+    return _family_module(cfg).lm_param_specs(cfg)
+
+
+def cache_specs(cfg):
+    """The cache spec tree (the cache keeps the reference's stacked
+    layout, so these are the reference's specs)."""
+    return _family_module(cfg).cache_specs(cfg)
+
+
+def named_specs(spec_tree, params) -> dict:
+    """{parameter name: spec} for ``params`` (a module, or the names of
+    its parameters): ``layers.3.attn.wq`` reads ``spec_tree["layers"]
+    ["attn"]["wq"]``, the layer index skipped."""
+    names = (dict(params.named_parameters()) if hasattr(
+        params, "named_parameters") else params)
+    out = {}
+    for name in names:
+        node = spec_tree
+        for part in name.split("."):
+            if not part.isdigit():
+                node = node[part]
+        out[name] = node
+    return out
+
+
 def text_len(cfg, seq: int) -> int:
     """Text-token count so total decoder sequence == seq for VLM."""
     if cfg.family == "vlm":
@@ -123,10 +153,12 @@ def forward(cfg, params, tokens, extra: Optional[dict] = None,
 
 @torch.no_grad()
 def prefill(cfg, params, tokens, max_seq: int, extra: Optional[dict] = None,
-            cache_dtype=torch.bfloat16, device=DEFAULT_DEVICE):
+            cache_dtype=torch.bfloat16, device=DEFAULT_DEVICE,
+            impl: str = "flash"):
     mod = _family_module(cfg)
     return mod.prefill(params, _on(params, tokens, device), cfg, max_seq,
-                       cache_dtype=cache_dtype, **_extra(cfg, extra, device))
+                       cache_dtype=cache_dtype, impl=impl,
+                       **_extra(cfg, extra, device))
 
 
 @torch.no_grad()

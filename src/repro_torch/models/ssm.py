@@ -21,6 +21,7 @@ the activation dtype, as the reference's do.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -29,7 +30,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
-from .common import check_impl, dense_init, dtype_of, param, rms_norm
+from .common import (FSDP, TP, P, check_impl, dense_init, dtype_of, matmul,
+                     param, residual, rms_norm)
 
 
 def _dt_rank(cfg) -> int:
@@ -81,6 +83,17 @@ class Mamba1(nn.Module):
 # ---------------------------------------------------------------------- #
 #  Depthwise causal conv1d
 # ---------------------------------------------------------------------- #
+def spec_mamba(cfg):
+    if cfg.mamba_version == 1:
+        return {"in_proj": P(FSDP, TP), "conv_w": P(TP, None),
+                "conv_b": P(TP), "x_proj": P(TP, None),
+                "dt_proj": P(None, TP), "dt_bias": P(TP),
+                "A_log": P(TP, None), "D": P(TP), "out_proj": P(TP, FSDP)}
+    return {"in_proj": P(FSDP, TP), "conv_w": P(TP, None), "conv_b": P(TP),
+            "A_log": P(None), "dt_bias": P(None), "D": P(None),
+            "norm_w": P(TP), "out_proj": P(TP, FSDP)}
+
+
 def causal_conv1d(x, w, b, state=None):
     """x: (B, L, C); w: (C, K); optional state: (B, K-1, C) prior context.
     Returns (y (B, L, C), new_state (B, K-1, C))."""
@@ -114,6 +127,47 @@ def _chunked_scan(run, h0, L: int, chunk: int = 256):
     return h, torch.cat(ys, dim=1)
 
 
+_STAND_IN: list = []
+
+
+@contextlib.contextmanager
+def scan_stand_in():
+    """Within the block a prompt's recurrence (:func:`mamba1_scan` or
+    :func:`mamba2_scan` over more than one step, with no initial state)
+    is :func:`_scan_stand_in`, not the scan. The dry run
+    (:mod:`repro_torch.launch.dryrun`) sets it: it traces for costs, and
+    a step loop would cost its trace minutes a layer. Its memory figures
+    for the SSM families are then those of the stand-in."""
+    _STAND_IN.append(True)
+    try:
+        yield
+    finally:
+        _STAND_IN.pop()
+
+
+def _stand_in(u, h0) -> bool:
+    return bool(_STAND_IN) and h0 is None and u.shape[1] > 1
+
+
+def _scan_stand_in(u, dt, A, Bm, Cm, D):
+    """The dry run's stand-in for a prompt's recurrence: outputs of the
+    scan's shapes, layouts and dtypes made by a few elementwise ops that
+    read every input, so the backward reaches each projection. A step
+    loop would cost the trace minutes a layer; the reference's cost
+    analysis counts a scan body once, and both dry runs add the
+    recurrence's modelled cost
+    (:func:`repro_torch.roofline.analysis.ssm_scan_correction`)."""
+    bc = (Bm.float() * Cm.float()).sum(dim=-1, keepdim=True)     # (B, L, 1)
+    if u.dim() == 4:                                             # Mamba-2
+        y = u.float() * (dt.float() * A + D)[..., None] + bc[..., None]
+        h = u[:, -1, :, :, None].float() * Bm[:, -1, None, None, :].float()
+    else:
+        y = u.float() * (dt.float() * A.mean(dim=-1) + D) + bc
+        h = torch.exp(A)[None] * (u[:, -1, :, None].float()
+                                  * Bm[:, -1, None, :].float())
+    return y, h
+
+
 def mamba1_scan(u, dt, A, Bm, Cm, D, h0=None):
     """Sequential selective scan (the training and decode route).
 
@@ -124,6 +178,8 @@ def mamba1_scan(u, dt, A, Bm, Cm, D, h0=None):
     h_last (B, Di, N) fp32)."""
     Bsz, L, Di = u.shape
     N = A.shape[1]
+    if _stand_in(u, h0):
+        return _scan_stand_in(u, dt, A, Bm, Cm, D)
     h = (torch.zeros((Bsz, Di, N), dtype=torch.float32, device=u.device)
          if h0 is None else h0)
     dt_s, B_s, C_s = (t.to(u.dtype) for t in (dt, Bm, Cm))
@@ -151,14 +207,14 @@ def mamba1_block(p: Mamba1, x, cfg, state=None, impl: str = "flash"):
     L = x.shape[1]
     Di, N = cfg.d_inner, cfg.ssm_state
     R = _dt_rank(cfg)
-    xz = x @ p.in_proj.to(x.dtype)
+    xz = matmul(x, p.in_proj.to(x.dtype))
     xs, z = xz[..., :Di], xz[..., Di:]
     conv_state = state["conv"] if state is not None else None
     xs, new_conv = causal_conv1d(xs, p.conv_w, p.conv_b, conv_state)
     xs = F.silu(xs)
-    proj = xs @ p.x_proj.to(xs.dtype)
+    proj = matmul(xs, p.x_proj.to(xs.dtype))
     dt_raw, Bm, Cm = proj[..., :R], proj[..., R:R + N], proj[..., R + N:]
-    dt = dt_raw @ p.dt_proj.to(xs.dtype)
+    dt = matmul(dt_raw, p.dt_proj.to(xs.dtype))
     dt = F.softplus(dt.float() + p.dt_bias[None, None, :])
     A = -torch.exp(p.A_log)
     if impl == "flash" and state is None and L > 1:
@@ -170,7 +226,8 @@ def mamba1_block(p: Mamba1, x, cfg, state=None, impl: str = "flash"):
         h0 = state["ssm"] if state is not None else None
         y, h_last = mamba1_scan(xs, dt, A, Bm, Cm, p.D, h0)
     y = y.to(x.dtype) * F.silu(z)
-    return y @ p.out_proj.to(x.dtype), {"conv": new_conv, "ssm": h_last}
+    return (residual(matmul(y, p.out_proj.to(x.dtype))),
+            {"conv": new_conv, "ssm": h_last})
 
 
 # ---------------------------------------------------------------------- #
@@ -221,6 +278,8 @@ def mamba2_scan(u, dt, A, Bm, Cm, D, h0=None):
     dtype. Returns (y (B, L, H, Pd) fp32, h_last (B, H, Pd, N) fp32)."""
     Bsz, L, H, Pd = u.shape
     N = Bm.shape[-1]
+    if _stand_in(u, h0):
+        return _scan_stand_in(u, dt, A, Bm, Cm, D)
     h = (torch.zeros((Bsz, H, Pd, N), dtype=torch.float32, device=u.device)
          if h0 is None else h0)
     dt_s, B_s, C_s = (t.to(u.dtype) for t in (dt, Bm, Cm))
@@ -258,7 +317,7 @@ def mamba2_block(p: Mamba2, x, cfg, state=None, impl: str = "flash"):
     Di, N = cfg.d_inner, cfg.ssm_state
     Pd = cfg.ssm_head_dim
     H = Di // Pd
-    proj = x @ p.in_proj.to(x.dtype)
+    proj = matmul(x, p.in_proj.to(x.dtype))
     z, xBC, dt_raw = (proj[..., :Di], proj[..., Di:2 * Di + 2 * N],
                       proj[..., 2 * Di + 2 * N:])
     conv_state = state["conv"] if state is not None else None
@@ -281,4 +340,5 @@ def mamba2_block(p: Mamba2, x, cfg, state=None, impl: str = "flash"):
                                 p.D, h0)
     y = y.reshape(B, L, Di).to(x.dtype) * F.silu(z)
     y = rms_norm(y, p.norm_w, cfg.norm_eps)
-    return y @ p.out_proj.to(x.dtype), {"conv": new_conv, "ssm": h_last}
+    return (residual(matmul(y, p.out_proj.to(x.dtype))),
+            {"conv": new_conv, "ssm": h_last})

@@ -7,9 +7,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .common import (Embeddings, dtype_of, embed_tokens, layer_call, param,
-                     rms_norm, unembed)
-from .ssm import Mamba1, mamba1_block
+from .common import (FSDP, TP, Embeddings, P, assign, dtype_of, embed_tokens,
+                     layer_call, mesh_zeros, param, podify, rms_norm,
+                     spec_embeddings, unembed)
+from .ssm import Mamba1, mamba1_block, spec_mamba
 
 
 class MambaLayer(nn.Module):
@@ -52,6 +53,17 @@ def init_lm(cfg, generator, device) -> MambaLM:
     m = MambaLM(cfg, device)
     m.reset_parameters(generator)
     return m
+
+
+def lm_param_specs(cfg):
+    return {"embed": spec_embeddings(cfg),
+            "layers": {"norm": P(None), "mamba": spec_mamba(cfg)},
+            "final_norm": P(None)}
+
+
+def cache_specs(cfg):
+    return {"conv": P(None, FSDP, None, TP),
+            "ssm": P(None, FSDP, TP, None)}
 
 
 def _head(params: MambaLM, x, cfg):
@@ -100,19 +112,21 @@ def decode_step(params: MambaLM, cache, tokens, pos, cfg):
             state={"conv": cache["conv"][i].to(x.dtype),
                    "ssm": cache["ssm"][i]})
         x = x + h
-        cache["conv"][i] = st["conv"]
-        cache["ssm"][i] = st["ssm"]
+        assign(cache["conv"], (i,), st["conv"])
+        assign(cache["ssm"], (i,), st["ssm"])
     return _head(params, x, cfg), cache
 
 
 def prefill(params: MambaLM, tokens, cfg, max_seq: int,
-            cache_dtype=torch.bfloat16):
+            cache_dtype=torch.bfloat16, impl: str = "flash"):
     x = embed_tokens(params.embed, tokens, cfg)
-    cache = init_cache(cfg, x.shape[0], max_seq, cache_dtype, x.device)
+    cache = mesh_zeros(lambda dev: init_cache(cfg, x.shape[0], max_seq,
+                                              cache_dtype, dev),
+                       podify(cache_specs(cfg)), x.device)
     for i, lp in enumerate(params.layers):
         h, st = mamba1_block(lp.mamba, rms_norm(x, lp.norm, cfg.norm_eps),
-                             cfg)
+                             cfg, impl=impl)
         x = x + h
-        cache["conv"][i] = st["conv"]
-        cache["ssm"][i] = st["ssm"]
+        assign(cache["conv"], (i,), st["conv"])
+        assign(cache["ssm"], (i,), st["ssm"])
     return _head(params, x, cfg), cache

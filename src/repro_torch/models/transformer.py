@@ -17,9 +17,12 @@ from torch import nn
 
 from . import attention as attn_mod
 from . import moe as moe_mod
-from .common import (Embeddings, dtype_of, embed_tokens, layer_call, param,
-                     rms_norm, unembed)
-from .mlp import MLP, mlp
+from .common import (FSDP, TP, Embeddings, P, assign, current_mesh,
+                     dtype_of, embed_tokens, layer_call, mesh_zeros, param,
+                     podify,
+                     rms_norm, sanitize_spec, shard_map, spec_embeddings,
+                     unembed)
+from .mlp import MLP, mlp, spec_mlp
 
 
 class Layer(nn.Module):
@@ -85,6 +88,38 @@ class TransformerLM(nn.Module):
 
 
 LM = TransformerLM
+
+
+def spec_layer(cfg, use_moe: bool):
+    p = {"attn_norm": P(None), "mlp_norm": P(None),
+         "attn": attn_mod.spec_attention(cfg)}
+    if use_moe:
+        p["moe"] = moe_mod.spec_moe(cfg)
+    else:
+        p["mlp"] = spec_mlp()
+    return p
+
+
+def lm_param_specs(cfg):
+    """Per-layer specs under each stack's name (the reference's stacked
+    specs with the leading layer entry dropped)."""
+    specs = {"embed": spec_embeddings(cfg)}
+    if _n_dense(cfg):
+        specs["dense_layers"] = spec_layer(cfg, use_moe=False)
+    specs["layers"] = spec_layer(cfg, use_moe=cfg.family == "moe")
+    specs["final_norm"] = P(None)
+    return specs
+
+
+def cache_specs(cfg):
+    """KV cache sharded: batch → data, sequence → model (flash-decode
+    SP); the cache keeps the reference's stacked layout."""
+    s = {"k": P(None, FSDP, None, TP, None),
+         "v": P(None, FSDP, None, TP, None)}
+    out = {"layers": dict(s)}
+    if _n_dense(cfg):
+        out["dense_layers"] = dict(s)
+    return out
 
 
 def init_lm(cfg, generator, device) -> TransformerLM:
@@ -184,21 +219,40 @@ def cache_write(kv, cache_side):
     S = kv.shape[2]
     S_alloc = cache_side.shape[2]
     if S > S_alloc:  # keep the last window, rolled into ring slots
-        kv = torch.roll(kv[:, :, S - S_alloc:], shifts=S % S_alloc, dims=2)
+        kv = _roll_seq(kv[:, :, S - S_alloc:], S % S_alloc)
         S = S_alloc
-    cache_side[:, :, :S] = kv.to(cache_side.dtype)
+    assign(cache_side, (slice(None), slice(None), slice(0, S)),
+           kv.to(cache_side.dtype))
+
+
+def _roll_seq(kv, shift: int):
+    """``torch.roll`` over kv's sequence dim; under a mesh on each rank's
+    batch shard (the sequence is whole there; some torch versions have
+    no DTensor rule for ``roll``)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return torch.roll(kv, shifts=shift, dims=2)
+    spec = sanitize_spec(P(("pod", FSDP), None, None, None),
+                         tuple(kv.shape), mesh)
+    (out,) = shard_map(lambda t: (torch.roll(t, shifts=shift, dims=2),),
+                       mesh, [spec], [spec])(kv)
+    return out
 
 
 def prefill(params: TransformerLM, tokens, cfg, max_seq: int,
-            vision_embeds=None, cache_dtype=torch.bfloat16):
+            vision_embeds=None, cache_dtype=torch.bfloat16,
+            impl: str = "flash"):
     """Run the prompt (VLM: after ``vision_embeds``); return (logits,
-    cache) with kv written at [0, S)."""
+    cache) with kv written at [0, S). Under a mesh the cache is laid out
+    as :func:`cache_specs` says, its batch over (pod, data)."""
     x = _embed(params, tokens, cfg, vision_embeds)
-    cache = init_cache(cfg, x.shape[0], max_seq, cache_dtype, x.device)
+    cache = mesh_zeros(lambda dev: init_cache(cfg, x.shape[0], max_seq,
+                                              cache_dtype, dev),
+                       podify(cache_specs(cfg)), x.device)
     for name, stack in params.stacks():
         ck, cv = cache[name]["k"], cache[name]["v"]
         for i, lp in enumerate(stack):
-            x, _, (k, v) = _layer_fwd(x, lp, cfg)
+            x, _, (k, v) = _layer_fwd(x, lp, cfg, impl)
             cache_write(k.transpose(1, 2), ck[i])
             cache_write(v.transpose(1, 2), cv[i])
     x = rms_norm(x, params.final_norm, cfg.norm_eps)

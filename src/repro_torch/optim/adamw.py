@@ -29,8 +29,10 @@ from typing import NamedTuple, Union
 import torch
 from torch import nn
 
+from ..models.common import P
+
 __all__ = ["AdamWConfig", "AdamWState", "BLOCK", "QuantState", "init",
-           "lr_at", "global_norm", "quantizable", "update"]
+           "lr_at", "global_norm", "quantizable", "state_specs", "update"]
 
 BLOCK = 128
 
@@ -61,7 +63,29 @@ def quantizable(shape) -> bool:
     return len(shape) >= 1 and shape[-1] % BLOCK == 0 and shape[-1] >= BLOCK
 
 
+def _whole_blocks(x: torch.Tensor) -> torch.Tensor:
+    """``x``, with its last dim gathered over the mesh axes that split it
+    where a shard would not hold whole 128-blocks (a DTensor only; e.g.
+    Kimi-K2's d_model 7168 = 56 blocks over 16 ``data`` ranks). The
+    reference's spec leaves such a scale unsharded there too."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    last = x.dim() - 1
+    on_last = [i for i, p in enumerate(x.placements)
+               if isinstance(p, Shard) and p.dim == last]
+    n = 1
+    for i in on_last:
+        n *= x.device_mesh.size(i)
+    if (x.shape[-1] // BLOCK) % n == 0:
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if i in on_last else p
+        for i, p in enumerate(x.placements)])
+
+
 def _quantize(x: torch.Tensor) -> QuantState:
+    x = _whole_blocks(x)
     nb = x.shape[-1] // BLOCK
     blocks = x.reshape(*x.shape[:-1], nb, BLOCK)
     scale = blocks.abs().amax(dim=-1) / 127.0                 # (..., nb)
@@ -74,7 +98,7 @@ def _quantize(x: torch.Tensor) -> QuantState:
 def _dequantize(s: QuantState) -> torch.Tensor:
     shape = s.q.shape
     nb = shape[-1] // BLOCK
-    blocks = s.q.reshape(*shape[:-1], nb, BLOCK).float()
+    blocks = _whole_blocks(s.q).reshape(*shape[:-1], nb, BLOCK).float()
     return (blocks * s.scale[..., None]).reshape(shape)
 
 
@@ -132,6 +156,23 @@ def init(params: Params, cfg: AdamWConfig) -> AdamWState:
            for n, p in named.items()},
         v={n: _encode(zeros(p), cfg.state_dtype, "v")
            for n, p in named.items()})
+
+
+def state_specs(param_specs: dict, param_shapes: dict,
+                cfg: AdamWConfig) -> AdamWState:
+    """The state's spec tree mirroring the parameters' (both keyed by
+    parameter name): an int8 ``QuantState`` takes the parameter's spec on
+    ``q`` and on ``scale`` alike, as the reference's; the dry run's
+    ``sanitize_spec`` then drops what does not divide ``scale``'s last
+    dim."""
+    def one_m(name):
+        spec = param_specs[name]
+        if cfg.state_dtype == "int8" and quantizable(
+                tuple(param_shapes[name])):
+            return QuantState(q=spec, scale=spec)
+        return spec
+    return AdamWState(step=P(), m={n: one_m(n) for n in param_specs},
+                      v=dict(param_specs))
 
 
 def lr_at(step, cfg: AdamWConfig) -> torch.Tensor:

@@ -22,13 +22,17 @@ def make_serve_step(cfg, device=DEFAULT_DEVICE):
     return serve_step
 
 
-def make_prefill_step(cfg, max_seq: int, device=DEFAULT_DEVICE):
+def make_prefill_step(cfg, max_seq: int, device=DEFAULT_DEVICE,
+                      impl: str = "flash"):
+    """prefill(params, tokens, extra) → (logits, cache), through the
+    kernels (``impl="flash"``) or the plain route (``"xla"``, what the dry
+    run traces)."""
     dev = resolve_device(device)
 
     @torch.no_grad()
     def prefill_step(params, tokens, extra=None):
         return model_lib.prefill(cfg, params, tokens, max_seq, extra,
-                                 device=dev)
+                                 device=dev, impl=impl)
 
     return prefill_step
 

@@ -22,6 +22,8 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models import model as model_lib
+from ..models.common import (FSDP, TP, P, current_mesh, mesh_axes,
+                             sanitize_spec, shard_map)
 from ..optim import adamw
 
 __all__ = ["cross_entropy", "loss_fn", "make_train_step"]
@@ -34,14 +36,51 @@ def cross_entropy(logits, labels, mask: Optional[torch.Tensor] = None):
     The mean over (masked) positions of ``logsumexp - picked logit``. The
     reference picks the label's logit with a one-hot compare-and-sum (for
     a vocabulary sharded over tensor parallelism); a gather picks the same
-    value."""
-    logz = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    value. Under a mesh (vocab-parallel logits) both are reductions over
+    the vocab shards: a max, a sum of exponentials and the one-hot sum,
+    each a small all-reduce, in place of gathering the logits."""
+    if current_mesh() is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    else:
+        logz, picked = _vocab_parallel_terms(logits, labels)
     ll = picked - logz
     if mask is None:
         return -ll.mean()
     mask = mask.float()
     return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def _vocab_parallel_terms(logits, labels):
+    """(logsumexp, the label's logit) of vocab-parallel logits: each rank
+    reduces its vocab shard, the max is all-reduced (without gradient),
+    and the sums of exponentials and of the one-hot picks are summed over
+    the shards."""
+    mesh = current_mesh()
+    B, S, V = logits.shape
+    dp = sanitize_spec(P(("pod", FSDP)), (B,), mesh)[0]
+    vspec = sanitize_spec(P(dp, None, TP), (B, S, V), mesh)
+    group = mesh.get_group(TP) if vspec[2] else None
+    V_loc = V // (mesh_axes(mesh)[TP] if group is not None else 1)
+    v0 = mesh.get_local_rank(TP) * V_loc if group is not None else 0
+
+    def local(lg, lab):
+        m = lg.amax(dim=-1, keepdim=True).detach()
+        if group is not None:
+            from torch.distributed import _functional_collectives as funcol
+            m = funcol.all_reduce(m, "max", group)
+        sumexp = torch.exp(lg - m).sum(dim=-1)
+        vocab = torch.arange(v0, v0 + V_loc, device=lg.device)
+        picked = torch.where(lab.long()[..., None] == vocab, lg,
+                             0.0).sum(dim=-1)
+        return sumexp, picked, m[..., 0]
+
+    rows = P(dp, None)
+    part = (TP,) if group is not None else ()
+    sumexp, picked, m = shard_map(local, mesh, [vspec, rows],
+                                  [rows, rows, rows],
+                                  out_partial=(part, part))(logits, labels)
+    return torch.log(sumexp) + m, picked
 
 
 def loss_fn(params, batch: dict, cfg, aux_weight: float = 0.01,

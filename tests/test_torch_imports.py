@@ -41,7 +41,10 @@ def test_importing_every_port_module_leaves_jax_and_repro_out():
 
 
 @pytest.mark.parametrize("package", ["repro_torch.dist",
-                                     "repro_torch.roofline"])
+                                     "repro_torch.roofline",
+                                     "repro_torch.launch",
+                                     "repro_torch.launch.dryrun",
+                                     "repro_torch.dist.collectives"])
 def test_subpackage_imports_alone_without_jax_or_repro(package):
     """Each subpackage imports first, in a fresh interpreter (the straggler
     monitor's package reaches ``core`` and back through ``federation``),

@@ -10,7 +10,9 @@
 * the analytic counters (``model_flops``, ``ssm_scan_correction``,
   ``derive_counters``), every ``model_app_suite`` profile (field for field)
   and every ``register_model_apps`` feature vector (bit for bit) equal the
-  reference's, and a compiled artifact is refused by name;
+  reference's, and so do the counters and profiles refined by a compiled
+  record (the reference's XLA artifact, the port's dry-run trace), which
+  fall back to the analytic terms in both packages;
 * registration is inert, as in the reference: a paper-only stream is the
   same with or without the derived suite registered, for all six policies,
   capped and segmented too, and neither the testbed's stream nor the paper
@@ -141,12 +143,38 @@ def test_register_model_apps_equals_reference_bitwise():
         np.testing.assert_array_equal(got["port"][n], got["ref"][n])
 
 
+class _CompiledStub:
+    """An XLA compiled artifact's cost interface, with cost data."""
+
+    def cost_analysis(self):
+        return {"flops": 1e15, "bytes accessed": 1e12}
+
+    def as_text(self):
+        return ""
+
+
 def test_compiled_artifact_is_refused():
-    cfg = p_config("smollm_360m")
-    with pytest.raises(NotImplementedError, match="§1.14"):
-        PM.derive_counters(cfg, "prefill", compiled=object())
-    with pytest.raises(NotImplementedError, match="§1.14"):
-        PM.derive_app("smollm_360m", "prefill", compiled=object())
+    """A compiled record refines nothing, in either package: the
+    reference's ``aot_counters`` reads the bytes under a key its
+    ``costs_of`` does not return, so both fall back to the analytic terms
+    (the port keeps the quirk for parity)."""
+    from repro_torch.roofline.analysis import Trace
+    record = Trace(flops=1e15, bytes=1e12)
+    for arch, phase in (("smollm_360m", "prefill"),
+                        ("kimi_k2_1t_a32b", "train_step"),
+                        ("falcon_mamba_7b", "decode")):
+        analytic = PM.derive_counters(p_config(arch), phase)
+        ref = RM.derive_counters(r_config(arch), phase,
+                                 compiled=_CompiledStub())
+        got = PM.derive_counters(p_config(arch), phase, compiled=record)
+        assert got == ref == analytic == RM.derive_counters(
+            r_config(arch), phase)
+        assert RM.aot_counters(_CompiledStub()) is None
+        assert PM.aot_counters(record) is None
+        assert dataclasses.asdict(PM.derive_app(arch, phase,
+                                                compiled=record)) == \
+            dataclasses.asdict(RM.derive_app(arch, phase,
+                                             compiled=_CompiledStub()))
     with pytest.raises(KeyError):
         PM.derive_app("smollm_360m", "backward")
 
