@@ -115,7 +115,18 @@ card, in phases:
    repro_torch.launch.dryrun``) as subprocesses on two production cells,
    smollm-360m train_4k on 16x16 with ``--device cuda`` and ``--device
    cpu`` (identical counts) and kimi-k2-1t-a32b decode_32k on 2x16x16
-   (``fsdp_over_pod``), each printed per device with its wall time.
+   (``fsdp_over_pod``), each printed per device with its wall time (the
+   recorder counts as XLA's cost analysis on the CPU: elementwise FLOPs,
+   fused bytes).
+18. the dry run -> scheduler path: ``repro_torch.examples.quickstart``
+   (the 12 paper apps profiled, the default predictor, mc/dc/d-dvfs),
+   then ``repro_torch.examples.schedule_jobs`` on phase 17's two cells
+   (their per-device roofline as framework jobs of 20 steps, FLOP, GB
+   and arithmetic intensity printed; mc/dc/d-dvfs/oracle through one
+   PredictionService) and again with no dry-run file (the reference's
+   four built-in profiles); each run on the card, where K1 builds every
+   table, and on the CPU, record for record (energy, misses, makespan
+   per policy), with its wall and K1's launches by batch rows.
 
 Ends with a JSON line of per-kernel numbers, the card line, and
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
@@ -1842,10 +1853,10 @@ def _restore_on_mesh(dev, tmp: str) -> None:
           f"trees in {restore_s:.1f} s; every shard bit for bit", flush=True)
 
 
-def _dryrun_cells(tmp: str) -> None:
+def _dryrun_cells(tmp: str) -> list:
     """Phase 17(d): the dry run on two production cells, each run in a
     process of its own (a process opens one process group), all started
-    together."""
+    together. Returns the ``--device cuda`` runs' result rows."""
     keys = ("flops", "bytes_accessed", "coll_bytes_raw",
             "coll_bytes_modeled", "coll_counts", "compute_s", "memory_s",
             "collective_s", "dominant")
@@ -1861,7 +1872,7 @@ def _dryrun_cells(tmp: str) -> None:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True, cwd=ROOT,
                 env=dict(os.environ, PYTHONPATH=str(ROOT / "src"))))
-    runs = {}
+    runs, rows = {}, []
     for (arch, shape, d), (out, proc) in procs.items():
         try:
             stdout, stderr = proc.communicate(timeout=600)
@@ -1873,16 +1884,17 @@ def _dryrun_cells(tmp: str) -> None:
                f"{stderr[-3000:]}")
         (res,) = json.loads(pathlib.Path(out).read_text())
         _check(res["status"] == "ok", f"dry run {arch} {shape} status")
+        if d == "cuda":
+            rows.append(res)
         rl, mem = res["roofline"], res["memory_per_device"]
         by_kind = res["coll_by_kind"]
         runs[arch, shape, d] = ({k: rl[k] for k in keys}, mem, by_kind)
         print(f"   dry run {arch} {shape} on {res['mesh']} "
               f"({res['n_chips']} ranks), --device {d}: per device "
-              f"flops {rl['flops']:.6e} (matmul), bytes "
+              f"flops {rl['flops']:.6e}, bytes "
               f"{rl['bytes_accessed']:.6e}, collectives "
               f"{rl['coll_counts']}, modeled bytes by kind {by_kind}, "
-              f"memory {mem}, {rl['dominant']}-bound on unfused bytes, not "
-              f"comparable with XLA's (compute "
+              f"memory {mem}, {rl['dominant']}-bound (compute "
               f"{rl['compute_s']:.4f} s, memory {rl['memory_s']:.4f} s, "
               f"collective {rl['collective_s']:.4f} s, v5e data model); "
               f"trace {res['compile_s']} s + analysis "
@@ -1894,9 +1906,10 @@ def _dryrun_cells(tmp: str) -> None:
                    f"dry run {arch} {shape}: --device cuda != cpu")
             print(f"   {arch} {shape}: identical counts with --device cuda "
                   f"and --device cpu", flush=True)
+    return rows
 
 
-def _phase17(dev, card) -> None:
+def _phase17(dev, card) -> list:
     import tempfile
     import torch.distributed as dist
     t0 = time.perf_counter()
@@ -1911,8 +1924,75 @@ def _phase17(dev, card) -> None:
         finally:
             dist.destroy_process_group()
         _free()
-        _dryrun_cells(tmp)
+        rows = _dryrun_cells(tmp)
     print(f"   phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
+def _phase18(gp, counters, dev, card, rows) -> dict:
+    """Phase 18: the dry run -> scheduler path. The paper's quickstart,
+    then ``schedule_jobs`` on phase 17's two dry-run cells (their
+    per-device roofline as framework jobs of 20 steps) and on the
+    reference's built-in profiles (no file), each on the card (K1 builds
+    the tables) and on the CPU, record for record."""
+    import tempfile
+    from repro_torch.examples import quickstart, schedule_jobs as sj
+    t0 = time.perf_counter()
+    print(f"== phase 18: dry run -> scheduler (quickstart, schedule_jobs); "
+          f"card {card}", flush=True)
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dryrun.json")
+        pathlib.Path(path).write_text(json.dumps(rows))
+        jobs = sj.arch_apps(20, path)
+        _check([a.name for a in jobs] == [f"{r['arch']}/{r['shape']}"
+                                          for r in rows],
+               "schedule_jobs read phase 17's cells")
+        for a in jobs:
+            print(f"   framework job {a.name}: {a.flops / 1e12:.6f} TFLOP, "
+                  f"{a.hbm_bytes / 1e9:.6f} GB, {a.coll_bytes / 1e9:.6f} GB "
+                  f"collective, AI {a.arithmetic_intensity:.6f} FLOP/B "
+                  f"(20 steps, per device)", flush=True)
+        absent = os.path.join(tmp, "absent.json")
+        runs = {
+            "quickstart": lambda d: quickstart.run(d, verbose=False),
+            "schedule_jobs (dry run)": lambda d: sj.run(
+                sj.arch_apps(20, path)[:16], 20, d, verbose=False)[0],
+            "schedule_jobs (built-in)": lambda d: sj.run(
+                sj.arch_apps(20, absent)[:16], 20, d, verbose=False)[0],
+        }
+        for name, fn in runs.items():
+            got, walls = {}, {}
+            for label, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+                _reset(counters)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                got[label] = fn(d)
+                torch.cuda.synchronize()
+                walls[label] = time.perf_counter() - t1
+                if label == "cuda":
+                    launches = gp.launches
+                    by_rows = dict(sorted(gp.rows_launches.items()))
+            _check(launches > 0, f"phase 18 {name}: K1 never launched")
+            for policy, r in got["cuda"].items():
+                c = got["cpu"][policy]
+                _check([_fields(x) for x in r.records]
+                       == [_fields(x) for x in c.records]
+                       and (r.total_energy, r.misses, r.makespan)
+                       == (c.total_energy, c.misses, c.makespan),
+                       f"phase 18 {name} {policy}: cuda != cpu")
+            report[name] = dict(launches=launches, by_rows=by_rows,
+                                wall_s=walls["cuda"],
+                                cpu_wall_s=walls["cpu"])
+            print(f"   {name}: " + "; ".join(
+                f"{p} energy {float(r.total_energy)!r} J, misses "
+                f"{r.misses}, makespan {float(r.makespan)!r} s"
+                for p, r in got["cuda"].items())
+                + f"; cuda == cpu record for record; wall {walls['cuda']:.3f}"
+                f" s on the card ({walls['cpu']:.3f} s on the CPU); K1 "
+                f"launches {launches}, by batch rows {by_rows}", flush=True)
+    print(f"   phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
+    return report
 
 
 def main() -> int:
@@ -2202,9 +2282,10 @@ def main() -> int:
           f"max); {time.perf_counter() - t0:.1f} s in all", flush=True)
     _free()
     _reset(counters)
-    _phase17(dev, card)
+    dryrun_rows = _phase17(dev, card)
     _check(fa.launches == 0 and ms.launches == 0 and gp.launches == 0,
            "phase 17 launched a kernel")
+    p18 = _phase18(gp, counters, dev, card, dryrun_rows)
 
     t768 = timing[768]
     rows = [{
@@ -2231,6 +2312,10 @@ def main() -> int:
         "launches_phase10": {k: v["launches"] for k, v in derived.items()},
         "launches_phase10_by_rows": {k: v["by_rows"]
                                      for k, v in derived.items()},
+        # phase 18: the dry run -> scheduler path
+        "launches_phase18": {k: v["launches"] for k, v in p18.items()},
+        "launches_phase18_by_rows": {k: v["by_rows"]
+                                     for k, v in p18.items()},
     }]
     for name, line, err, main in (("flash_attention", 116, attn_err, 7),
                                   ("mamba_scan", 72, scan_err, 8)):

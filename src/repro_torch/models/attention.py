@@ -80,28 +80,48 @@ def spec_attention(cfg):
     return p
 
 
-def _heads(t, H: int, hd: int):
+def _heads(t, H: int, hd: int, seq=None):
     """(B, S, H*hd) → (B, S, H, hd). Under a mesh the projection's
     ``model`` shards are gathered first: the head count need not divide
     the ``model`` axis (15 heads on 16), and the key-parallel attention
-    wants q whole on every ``model`` rank."""
-    t = maybe_shard(t, P(("pod", FSDP), None, None))
+    wants q whole on every ``model`` rank. ``seq``: the sequence's
+    ``model`` split of k or v, kept (:func:`_keys_split`)."""
+    t = maybe_shard(t, P(("pod", FSDP), seq, None))
     return t.reshape(t.shape[0], t.shape[1], H, hd)
+
+
+def _keys_split(p: Attention, S: int):
+    """``TP`` when k and v are to be projected on each ``model`` rank's
+    key rows only: under a mesh whose ``model`` axis the KV heads do not
+    divide (``wk`` whole over it, 5 heads on 16), for a sequence that
+    does divide. The key-parallel attention reads just those rows, and
+    the partitioner projects no more for the reference (SmolLM-360M
+    train_4k: 16x the K/V products otherwise). Else ``None``."""
+    mesh = current_mesh()
+    from torch.distributed.tensor import DTensor, Replicate
+    if mesh is None or TP not in mesh.mesh_dim_names or S <= 1 or \
+            not isinstance(p.wk, DTensor):
+        return None
+    i = list(mesh.mesh_dim_names).index(TP)
+    if p.wk.placements[i] != Replicate() or S % mesh.size(i):
+        return None
+    return TP
 
 
 def _project_qkv(p: Attention, x, cfg, positions):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
+    seq = _keys_split(p, S)
     q = matmul(x, p.wq.to(x.dtype))
-    k = matmul(x, p.wk.to(x.dtype))
-    v = matmul(x, p.wv.to(x.dtype))
+    k = matmul(x, p.wk.to(x.dtype), split_seq=seq is not None)
+    v = matmul(x, p.wv.to(x.dtype), split_seq=seq is not None)
     if cfg.qkv_bias:
         q = q + p.bq.to(x.dtype)
         k = k + p.bk.to(x.dtype)
         v = v + p.bv.to(x.dtype)
     q = _heads(q, cfg.n_heads, hd)
-    k = _heads(k, cfg.n_kv_heads, hd)
-    v = _heads(v, cfg.n_kv_heads, hd)
+    k = _heads(k, cfg.n_kv_heads, hd, seq)
+    v = _heads(v, cfg.n_kv_heads, hd, seq)
     if positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)

@@ -371,14 +371,17 @@ def shard_map(f, mesh, in_specs, out_specs, out_partial=()):
     return run
 
 
-def matmul(x, w):
+def matmul(x, w, split_seq: bool = False):
     """``x @ w`` for a projection ``w`` (in, out). Under a mesh, with ``w``
     a DTensor, the product runs on local shards in the layout its spec
     implies, not one DTensor's strategy search picks: ``w``'s FSDP shards
     are gathered (over ``data``/``pod``), its ``model`` split decides
     column parallelism (x whole over ``model``, the output split) or row
     parallelism (x split on its last dim, the partial outputs summed by
-    an all-reduce), and x keeps its batch over (pod, data)."""
+    an all-reduce), and x keeps its batch over (pod, data). With
+    ``split_seq`` and ``w`` whole over ``model``, x's second dim (the
+    sequence) is split over ``model`` instead, and so is the output:
+    each rank projects only its rows."""
     mesh = current_mesh()
     if mesh is None:
         return x @ w
@@ -390,12 +393,64 @@ def matmul(x, w):
     row, col = on_tp == Shard(0), on_tp == Shard(1)
     dp = sanitize_spec(P(("pod", FSDP)), (x.shape[0],), mesh)[0]
     mid = [None] * (x.dim() - 2)
+    if split_seq and not (row or col) and mid:
+        mid[0] = sanitize_spec(P(None, TP), tuple(x.shape[:2]), mesh)[1]
     (y,) = shard_map(lambda a, b: (a @ b,), mesh,
                      [P(dp, *mid, TP if row else None),
                       P(TP if row else None, TP if col else None)],
                      [P(dp, *mid, TP if col else None)],
                      out_partial=((TP,) if row else (),))(x, w)
     return y
+
+
+def split_last(x, sizes):
+    """``torch.split(x, sizes, dim=-1)``. Under a mesh, with ``x`` a
+    DTensor whose last dim is split over ``model`` (and no other axis)
+    and every part dividing over ``model``, each part comes out split
+    over ``model`` too, and the ranks exchange only what moves: one
+    all-to-all over ``model`` sends each column to the rank that holds it
+    in its part's layout, as the partitioner does for the reference's
+    ``jnp.split`` of a projection's output. (Slicing the DTensor would
+    gather ``x`` whole over ``model`` once a part.)"""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = current_mesh()
+    sizes = list(sizes)
+    names = list(mesh.mesh_dim_names) if mesh is not None else []
+    if not isinstance(x, DTensor) or TP not in names:
+        return torch.split(x, sizes, dim=-1)
+    i, d = names.index(TP), x.dim() - 1
+    tp = mesh.size(i)
+    if x.placements[i] != Shard(d) or any(
+            p == Shard(d) for j, p in enumerate(x.placements) if j != i) \
+            or any(n % tp for n in sizes):
+        return torch.split(x, sizes, dim=-1)
+    from torch.distributed._functional_collectives import \
+        all_to_all_single_autograd
+    local = x.to_local()
+    c, r, J = local.shape[-1], mesh.get_local_rank(TP), len(sizes)
+    starts = [sum(sizes[:j]) for j in range(J)]
+
+    def cut(q, j, s):
+        """Part j's columns on rank q that rank s holds (global)."""
+        w = sizes[j] // tp
+        lo = max(starts[j] + q * w, s * c)
+        return lo, max(lo, min(starts[j] + (q + 1) * w, (s + 1) * c))
+
+    # send to each rank q its parts' columns, part by part; receive from
+    # each rank s in the same order, and put each part's pieces together
+    sent = [cut(q, j, r) for q in range(tp) for j in range(J)]
+    mine = [cut(r, j, s) for s in range(tp) for j in range(J)]
+    got = all_to_all_single_autograd(
+        torch.cat([local[..., lo - r * c:hi - r * c].movedim(-1, 0)
+                   for lo, hi in sent]),
+        [sum(hi - lo for lo, hi in mine[s * J:(s + 1) * J])
+         for s in range(tp)],
+        [sum(hi - lo for lo, hi in sent[q * J:(q + 1) * J])
+         for q in range(tp)], mesh.get_group(i))
+    pieces = torch.split(got, [hi - lo for lo, hi in mine])
+    return tuple(DTensor.from_local(
+        torch.cat(pieces[j::J]).movedim(0, -1), mesh, x.placements,
+        run_check=False) for j in range(J))
 
 
 def batch_spec():

@@ -31,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
 from .common import (FSDP, TP, P, check_impl, dense_init, dtype_of, matmul,
-                     param, residual, rms_norm)
+                     param, residual, rms_norm, split_last)
 
 
 def _dt_rank(cfg) -> int:
@@ -208,7 +208,7 @@ def mamba1_block(p: Mamba1, x, cfg, state=None, impl: str = "flash"):
     Di, N = cfg.d_inner, cfg.ssm_state
     R = _dt_rank(cfg)
     xz = matmul(x, p.in_proj.to(x.dtype))
-    xs, z = xz[..., :Di], xz[..., Di:]
+    xs, z = split_last(xz, (Di, Di))
     conv_state = state["conv"] if state is not None else None
     xs, new_conv = causal_conv1d(xs, p.conv_w, p.conv_b, conv_state)
     xs = F.silu(xs)
@@ -318,12 +318,11 @@ def mamba2_block(p: Mamba2, x, cfg, state=None, impl: str = "flash"):
     Pd = cfg.ssm_head_dim
     H = Di // Pd
     proj = matmul(x, p.in_proj.to(x.dtype))
-    z, xBC, dt_raw = (proj[..., :Di], proj[..., Di:2 * Di + 2 * N],
-                      proj[..., 2 * Di + 2 * N:])
+    z, xBC, dt_raw = split_last(proj, (Di, Di + 2 * N, H))
     conv_state = state["conv"] if state is not None else None
     xBC, new_conv = causal_conv1d(xBC, p.conv_w, p.conv_b, conv_state)
     xBC = F.silu(xBC)
-    xs, Bm, Cm = xBC[..., :Di], xBC[..., Di:Di + N], xBC[..., Di + N:]
+    xs, Bm, Cm = split_last(xBC, (Di, N, N))
     dt = F.softplus(dt_raw.float() + p.dt_bias[None, None])   # (B, L, H)
     A = -torch.exp(p.A_log)
     if impl == "flash" and state is None and L > 1:

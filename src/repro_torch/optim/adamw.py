@@ -116,6 +116,18 @@ def _decode(s) -> torch.Tensor:
     return s.float()
 
 
+def _laid_out_as(g, p):
+    """``g`` in the layout of its parameter ``p``. Under a mesh a
+    gradient may come as a partial sum over some axes; it is reduced
+    once here (an all-reduce, or a reduce-scatter onto ``p``'s shards),
+    not again at each use in the update."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(g, DTensor) and isinstance(p, DTensor) and \
+            tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def _assign(dst, src) -> None:
     """Write a new state value into the live one, in place."""
     if isinstance(dst, QuantState):
@@ -206,6 +218,7 @@ def update(params: Params, grads: dict, state: AdamWState,
     if set(grads) != set(named):
         raise KeyError(f"grads and params differ: "
                        f"{sorted(set(grads) ^ set(named))}")
+    grads = {n: _laid_out_as(grads[n], p) for n, p in named.items()}
     state.step.add_(1)
     step_f = state.step.float()
     gnorm = global_norm(grads)

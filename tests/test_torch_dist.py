@@ -582,7 +582,7 @@ GLOO_SCRIPT = textwrap.dedent("""
 #: the model path on the 4x2 gloo mesh: these reduced models, a batch of
 #: MODEL_BATCH rows (one a ``data`` shard) of MODEL_SEQ tokens
 MODEL_ARCHS = ("smollm-360m", "mixtral-8x22b", "falcon-mamba-7b",
-               "whisper-large-v3")
+               "whisper-large-v3", "zamba2-7b")
 MODEL_SEQ, MODEL_BATCH = 12, 4
 LR = 1e-3
 

@@ -20,6 +20,7 @@ CPU.
 from __future__ import annotations
 
 import functools
+import importlib.util
 import json
 import os
 import subprocess
@@ -152,8 +153,10 @@ SCRIPT = textwrap.dedent("""
         for shape in shapes:
             tr = dr._compile(cfg, shape, mesh, 1, device="cpu")
             out["cells"][f"{arch}/{shape.mode}"] = {
-                "flops": tr.flops, "mem": roofline.memory_stats(tr),
-                "coll": roofline.costs_of(tr)["coll_counts"]}
+                "flops": tr.flops, "matmul_flops": tr.matmul_flops,
+                "mem": roofline.memory_stats(tr),
+                "coll": roofline.costs_of(tr)["coll_counts"],
+                "records": [list(r) for r in tr.collectives]}
 
     # extrapolation from depths 1 and 2 against a trace at depth 4
     cfg = dc.replace(reduce_for_smoke(get_config("smollm-360m")),
@@ -180,8 +183,33 @@ SCRIPT = textwrap.dedent("""
             x = distribute_tensor(torch.empty(M, K), mesh, px)
             w = distribute_tensor(torch.empty(K, N), mesh, pw)
             with roofline.Recorder((x, w)) as rec:
-                x @ w
+                rec.outputs(x @ w)
             out["route"][name] = [rec.trace.flops, want]
+
+    # AdamW on a replicated parameter whose gradient is a partial sum
+    # over both mesh axes: the gradient is all-reduced once
+    from torch.distributed.tensor import DTensor, Partial
+    from repro_torch.optim import adamw
+    with FakeTensorMode():
+        p = torch.nn.Parameter(distribute_tensor(
+            torch.empty(64, 32), mesh, [Replicate(), Replicate()]))
+        g = DTensor.from_local(torch.empty(64, 32), mesh,
+                               [Partial(), Partial()], run_check=False)
+        ocfg = adamw.AdamWConfig()
+        with torch.utils._python_dispatch._disable_current_modes():
+            meta = adamw.init({"w": torch.empty(64, 32, device="meta")},
+                              ocfg)
+        state = type(meta)(*(
+            distribute_tensor(torch.empty(t.shape, dtype=t.dtype), mesh,
+                              [Replicate(), Replicate()])
+            if isinstance(t, torch.Tensor) else
+            {k: distribute_tensor(torch.empty(v.shape, dtype=v.dtype),
+                                  mesh, [Replicate(), Replicate()])
+             for k, v in t.items()} for t in meta))
+        with roofline.Recorder(({"w": p}, g, state)) as rec:
+            adamw.update({"w": p}, {"w": g}, state, ocfg)
+    out["adamw"] = [list(r) for r in rec.trace.collectives]
+
     json.dump(out, open(sys.argv[1], "w"))
     print("DRYRUN_OK")
 """)
@@ -230,14 +258,15 @@ def test_smollm_train_flops_equal_hand_count(small):
     runs 256 tokens. Column-parallel wq and the MLP's up/gate split their
     output over ``model``, row-parallel wo and w_down their input; wk/wv
     stay whole (2 kv heads do not divide 16: the reference's spec leaves
-    them unsharded over ``model``); attention splits the keys over
+    them unsharded over ``model``), and each ``model`` rank projects the
+    key rows it attends over only; attention splits the keys over
     ``model``; the tied unembedding splits the vocab. Train: forward,
     the rematerialised forward (which stops before each layer's last
     product, w_down, whose output the backward does not need — XLA drops
     it alike) and the backward (two products per forward one)."""
     T, B, S, tp = 256, 2, 128, 2
     d, hq, hd, kv, ff, V = 64, 4, 16, 2, 128, 256
-    proj = 2 * T * (d * hq * hd // tp + 2 * d * kv * hd
+    proj = 2 * T * (d * hq * hd // tp + 2 * d * kv * hd // tp
                     + hq * hd // tp * d)
     attn = 2 * (2 * B * hq * S * (S // tp) * hd)
     mlp = 2 * T * 3 * d * ff // tp
@@ -245,7 +274,9 @@ def test_smollm_train_flops_equal_hand_count(small):
     layer = proj + attn + mlp
     unembed = 2 * T * d * V // tp
     want = 4 * (4 * layer - w_down) + 3 * unembed
-    assert small["cells"]["smollm-360m/train"]["flops"] == want
+    cell = small["cells"]["smollm-360m/train"]
+    assert cell["matmul_flops"] == want
+    assert cell["flops"] > want          # the elementwise work on top
 
 
 def test_extrapolation_equals_direct_trace(small):
@@ -259,3 +290,240 @@ def test_extrapolation_equals_direct_trace(small):
 def test_dtensor_route_counts_local_shapes(small, layout):
     got, want = small["route"][layout]
     assert got == want
+
+
+def test_mamba_split_moves_halves_not_the_whole_projection(small):
+    """Mamba-1's ``in_proj`` output is split over ``model`` into x and z.
+    The port once sliced the DTensor, and DTensor gathered the whole
+    projection over ``model`` for each slice (Falcon-Mamba train's
+    collective bytes were 1.96x the reference's). Now one all-to-all over
+    ``model`` a pass moves what changes rank, as the reference's
+    partitioner does, and nothing is gathered over ``model``."""
+    recs = small["cells"]["falcon-mamba-7b/train"]["records"]
+    model = [r for r in recs if r[2] == 2]
+    assert not [r for r in model if r[0] == "all-gather"]
+    # 4 layers: forward, rematerialised forward, backward
+    assert sum(r[0] == "all-to-all" for r in model) == 4 * 3
+
+
+def test_adamw_reduces_a_partial_gradient_once(small):
+    """A replicated parameter's gradient, a partial sum over both axes,
+    is all-reduced once before the update (it was reduced again at each
+    use: the moments, the square, the step and each state write)."""
+    kinds = [r[0] for r in small["adamw"]]
+    assert kinds == ["all-reduce", "all-reduce"]      # one per mesh axis
+
+
+# ---------------------------------------------------------------------- #
+#  The depth-extrapolated costs against the reference's, six cells
+# ---------------------------------------------------------------------- #
+def _compare_script():
+    spec = importlib.util.spec_from_file_location(
+        "_dryrun_small_vs_reference",
+        os.path.join(ROOT, "scripts", "dryrun_small_vs_reference.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@functools.lru_cache(maxsize=1)
+def _comparison():
+    return _compare_script().compare()
+
+
+SIX = [f"{a} {m}" for a in ("smollm-360m", "mixtral-8x22b",
+                            "falcon-mamba-7b") for m in ("train", "decode")]
+
+
+@pytest.mark.parametrize("cell", SIX)
+def test_small_mesh_dominant_term_equals_reference(cell):
+    c = _comparison()[cell]
+    assert c["port"]["dominant"] == c["reference"]["dominant"]
+
+
+# Falcon-Mamba train is held to the reference run with the port's scan
+# stand-in: XLA's count of the reference's scan (its while body once, its
+# stacked operands read and results written whole by each dynamic slice
+# and update) is not the recurrence's cost, and the port has no loop to
+# count (PERF.md section 7)
+BYTES_CELLS = [c for c in SIX if c != "falcon-mamba-7b train"] + [
+    "falcon-mamba-7b train stand-in"]
+
+
+@pytest.mark.parametrize("cell", BYTES_CELLS)
+def test_small_mesh_bytes_within_reference(cell):
+    assert 0.67 <= _comparison()[cell]["ratio"]["bytes"] <= 1.5
+
+
+def test_mamba_train_bytes_gap_is_the_scan_loop():
+    """Without the scan's loop the reference counts 20-40 % fewer bytes;
+    the port lies on the stand-in side of that gap."""
+    real = _comparison()["falcon-mamba-7b train"]
+    fake = _comparison()["falcon-mamba-7b train stand-in"]
+    assert fake["reference"]["bytes"] < 0.8 * real["reference"]["bytes"]
+    assert real["ratio"]["bytes"] < fake["ratio"]["bytes"]
+
+
+@pytest.mark.parametrize("cell", SIX + ["falcon-mamba-7b train stand-in"])
+def test_small_mesh_flops_within_reference(cell):
+    """FLOPs less casts within x1.25 on every cell; the train cells'
+    FLOPs with casts too. In decode most of the reference's FLOPs are
+    converts: XLA on the CPU casts a stacked parameter or cache whole
+    each time a layer uses its slice (PERF.md section 7)."""
+    q = _comparison()[cell]["ratio"]
+    assert 0.8 <= q["net"] <= 1.25
+    if "train" in cell:
+        assert 0.8 <= q["flops"] <= 1.25
+
+
+@pytest.mark.parametrize("cell", SIX)
+def test_small_mesh_collectives_within_reference(cell):
+    """Collective bytes near the reference's: Falcon-Mamba train's (1.96x
+    before its port fault was repaired) within x1.1; the others within
+    [0.65, 1.25], where the two partitioners choose different
+    collectives for the same specs (PERF.md section 7): Mixtral decode
+    moves its experts' weights over ``data`` in bf16 as the reference's
+    source writes it, where XLA casts them to f32 first (2x the bytes);
+    the train cells reduce-scatter FSDP gradients where XLA all-reduces
+    them, and gather the input's gradient over ``model`` where the K/V
+    projections ran on key shards."""
+    q = _comparison()[cell]["ratio"]["coll"]
+    if cell == "falcon-mamba-7b train":
+        assert 1 / 1.1 <= q <= 1.1
+    else:
+        assert 0.65 <= q <= 1.25
+
+
+# ---------------------------------------------------------------------- #
+#  Calibration: one op class at a time against XLA's cost analysis (CPU)
+# ---------------------------------------------------------------------- #
+_JD = {"f32": "float32", "bf16": "bfloat16", "i32": "int32", "bool": "bool"}
+_X, _XB = ((1024, 1024), "f32"), ((1024, 1024), "bf16")
+_W = ((1024,), "f32")
+
+
+def _probes():
+    import jax.numpy as jnp
+    import torch
+    import torch.nn.functional as F
+    rms = (lambda x, w: x * jax.lax.rsqrt(
+        (x * x).mean(-1, keepdims=True) + 1e-6) * w,
+        lambda x, w: x * torch.rsqrt(
+            (x * x).mean(-1, keepdim=True) + 1e-6) * w)
+    # name: (jax fn, torch fn, inputs, bytes tolerance, flops tolerance)
+    return {
+        "mul": (lambda x: x * 2, lambda x: x * 2, [_X], 0, 0),
+        "add": (lambda x, y: x + y, lambda x, y: x + y, [_X, _X], 0, 0),
+        "fused_chain_exp": (lambda x: jnp.exp(x * 2 + 1),
+                            lambda x: torch.exp(x * 2 + 1), [_X], 0, 0),
+        "where": (lambda c, x, y: jnp.where(c, x, y), torch.where,
+                  [((1024, 1024), "bool"), _X, _X], 0, 0),
+        "compare": (lambda x, y: x > y, lambda x, y: x > y, [_X, _X], 0, 0),
+        "cast": (lambda x: x.astype(jnp.bfloat16),
+                 lambda x: x.to(torch.bfloat16), [_X], 0, 0),
+        "bf16_cast_chain": (
+            lambda x: (x.astype(jnp.float32) * 2).astype(jnp.bfloat16),
+            lambda x: (x.float() * 2).to(torch.bfloat16), [_XB], 0, 0),
+        "rsqrt": (jax.lax.rsqrt, torch.rsqrt, [_X], 0, 0),
+        "tanh": (jnp.tanh, torch.tanh, [_X], 0, 0),
+        "sigmoid": (jax.nn.sigmoid, torch.sigmoid, [_X], 0, 0),
+        "silu": (jax.nn.silu, F.silu, [_X], 0, 0),
+        "softplus": (jax.nn.softplus, F.softplus, [_X], 0, 0),
+        "integer_power": (lambda x: x ** 2, lambda x: x ** 2, [_X], 0, 0),
+        "broadcast": (lambda x, w: x * w[None, :],
+                      lambda x, w: x * w[None, :], [_X, _W], 0, 0),
+        "transpose": (lambda x: (x * 2).T + 1, lambda x: (x * 2).T + 1,
+                      [_X], 0, 0),
+        "slices": (lambda x: x[:, :512] * x[:, 512:],
+                   lambda x: x[:, :512] * x[:, 512:], [_X], 0, 0),
+        # XLA's row reductions also write and read a partial-sum buffer
+        # of 1/16 of the input; one FLOP an input element (XLA: n - 1)
+        "row_sum": (lambda x: x.sum(-1), lambda x: x.sum(-1), [_X],
+                    0.06, 1e-3),
+        "row_max": (lambda x: x.max(-1), lambda x: x.amax(-1), [_X],
+                    0.06, 1e-3),
+        "reduce_unfused": (lambda x: (x * x).sum(-1),
+                           lambda x: (x * x).sum(-1), [_X], 0.03, 1e-3),
+        "softmax": (lambda x: jax.nn.softmax(x, -1),
+                    lambda x: torch.softmax(x, -1), [_X], 0.03, 1e-3),
+        "log_softmax": (lambda x: jax.nn.log_softmax(x, -1),
+                        lambda x: torch.log_softmax(x, -1), [_X], 0.03,
+                        1e-3),
+        "rmsnorm": (*rms, [_X, _W], 0.03, 0),
+        "product_f32": (lambda a, b: a @ b, lambda a, b: a @ b, [_X, _X],
+                        0, 0),
+        "product_bf16": (lambda a, b: a @ b, lambda a, b: a @ b,
+                         [_XB, _XB], 0, 0),
+        "product_bf16_into_f32": (
+            lambda a, b: jnp.matmul(a, b,
+                                    preferred_element_type=jnp.float32),
+            lambda a, b: torch.mm(a, b, out_dtype=torch.float32),
+            [_XB, _XB], 0, 0),
+        # XLA fuses a*2 into the operand's cast and counts one convert
+        # fewer than the recorder's cast of a then a*2 (1e-3)
+        "bf16_ew_into_product": (lambda a, b: (a * 2) @ b,
+                                 lambda a, b: (a * 2) @ b, [_XB, _XB], 0,
+                                 1e-3),
+        "product_into_bf16_ew": (lambda a, b: (a @ b) * 2,
+                                 lambda a, b: (a @ b) * 2, [_XB, _XB], 0,
+                                 1e-3),
+        "ew_product_ew": (lambda a, b: jnp.exp((a * 2) @ b + 1),
+                          lambda a, b: torch.exp((a * 2) @ b + 1),
+                          [_X, _X], 0, 0),
+        "take": (lambda x, i: x[i], lambda x, i: x[i],
+                 [_X, ((512,), "i32")], 1e-3, None),
+        "concat": (lambda x, y: jnp.concatenate([x, y], -1),
+                   lambda x, y: torch.cat([x, y], -1), [_X, _X], 0, 0),
+        "cache_write": (lambda x, y: jax.lax.dynamic_update_slice(
+            x, y, (0, 0)), _write_rows, [_X, ((16, 1024), "f32")], 1e-5,
+            0),
+    }
+
+
+def _write_rows(x, y):
+    x[:16] = y
+    return x
+
+
+def _xla_costs(fn, inputs):
+    import jax.numpy as jnp
+    args = [jax.ShapeDtypeStruct(s, getattr(jnp, _JD[d]))
+            for s, d in inputs]
+    c = RA.cost_analysis(jax.jit(fn).lower(*args).compile())
+    return [float(c.get(k) or 0.0) for k in ("flops", "bytes accessed",
+                                             "transcendentals")]
+
+
+def _recorded_costs(fn, inputs):
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16, "i32": torch.int64,
+          "bool": torch.bool}
+    with FakeTensorMode():
+        args = [torch.empty(s, dtype=dt[d]) for s, d in inputs]
+        with PA.Recorder(args) as rec:
+            rec.outputs(fn(*args))
+    c = PA.cost_analysis(rec.trace)
+    return [c["flops"], c["bytes accessed"], c["transcendentals"]]
+
+
+@pytest.mark.parametrize("name", sorted(_probes()))
+def test_recorder_counts_as_xla_cost_analysis(name):
+    jfn, tfn, inputs, btol, ftol = _probes()[name]
+    want = _xla_costs(jfn, inputs)
+    got = _recorded_costs(tfn, inputs)
+    assert got[1] == pytest.approx(want[1], rel=btol, abs=0), "bytes"
+    if ftol is not None:
+        assert got[0] == pytest.approx(want[0], rel=ftol, abs=0), "flops"
+    assert got[2] == want[2], "transcendentals"
+
+
+def test_shared_cheap_producer_is_written_once():
+    """The one probe the recorder does not follow: XLA copies a cheap
+    producer with two consumers into both fusions (x read twice, 1.68e7
+    bytes); the recorder writes it once and reads it twice (2.52e7)."""
+    f = lambda x: (lambda y: (y + 1, y * 3))(x * 2 + 1)    # noqa: E731
+    want = _xla_costs(f, [_X])
+    got = _recorded_costs(f, [_X])
+    assert want[1] == pytest.approx(4 * 4 * 2 ** 20, abs=64)
+    assert got[1] == 6 * 4 * 2 ** 20

@@ -40,7 +40,9 @@ def test_importing_every_port_module_leaves_jax_and_repro_out():
     assert int(out.stdout.strip()) >= 20     # every module was reached
 
 
-@pytest.mark.parametrize("package", ["repro_torch.dist",
+@pytest.mark.parametrize("package", ["repro_torch.examples.quickstart",
+                                     "repro_torch.examples.schedule_jobs",
+                                     "repro_torch.dist",
                                      "repro_torch.roofline",
                                      "repro_torch.launch",
                                      "repro_torch.launch.dryrun",
@@ -91,7 +93,8 @@ def _entry_points():
     from repro_torch.convert import model_from_arrays
     from repro_torch.models import model
     from repro_torch.convert import opt_state_from_arrays
-    from repro_torch.examples import serve_decode, train_lm
+    from repro_torch.examples import (quickstart, schedule_jobs,
+                                      serve_decode, train_lm)
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train import serve
     from repro_torch.train.step import loss_fn, make_train_step
@@ -132,6 +135,8 @@ def _entry_points():
             params, {"step": 0, "m": {}, "v": {}}, device="cuda"),
         "train_lm": lambda: train_lm.main(["--steps", "1"]),
         "serve_decode": lambda: serve_decode.main([]),
+        "quickstart": lambda: quickstart.main([]),
+        "schedule_jobs": lambda: schedule_jobs.main(["--steps", "1"]),
     }
 
 
@@ -145,7 +150,8 @@ def _entry_points():
                                   "make_serve_step", "make_prefill_step",
                                   "ColdStartSynthesizer", "make_train_step",
                                   "loss_fn", "opt_state_from_arrays",
-                                  "train_lm", "serve_decode"])
+                                  "train_lm", "serve_decode", "quickstart",
+                                  "schedule_jobs"])
 def test_default_device_is_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is usable")
