@@ -108,19 +108,25 @@ card, in phases:
    port's (a gloo group in the same process) and the residual within
    max|g|/127, ms per round; ``moe_sharded`` on a (1, 1) data x model
    CUDA mesh over one Kimi-K2 MoE layer at full width (384 experts,
-   d_model 7168, the shared expert, bf16), bit for bit with ``moe``; the
+   d_model 7168, the shared expert, bf16), bit for bit with ``moe``; one
+   Zamba2-7B Mamba-2 block (fp32) on that mesh, its scan in K3 on the
+   rank's heads (one launch), within 1e-5 of the meshless block; the
    elastic restore of SmolLM-360M's bf16 params and int8 AdamW state onto
    a one-rank CUDA mesh by the spec trees, every shard bit for bit with
-   the saved arrays; and the dry run (``python -m
-   repro_torch.launch.dryrun``) as subprocesses on two production cells,
-   smollm-360m train_4k on 16x16 with ``--device cuda`` and ``--device
-   cpu`` (identical counts) and kimi-k2-1t-a32b decode_32k on 2x16x16
-   (``fsdp_over_pod``), each printed per device with its wall time (the
-   recorder counts as XLA's cost analysis on the CPU: elementwise FLOPs,
-   fused bytes).
+   the saved arrays (psum and the restore are timed before the dry runs
+   start); and the dry run (``python -m
+   repro_torch.launch.dryrun``) as subprocesses on four production
+   cells, smollm-360m train_4k (query-parallel attention: 15 heads on
+   16) and whisper-large-v3 decode_32k (1500 frames and a 51 866-token
+   vocab split unevenly over 16) on 16x16 with ``--device cuda`` and
+   ``--device cpu`` (identical counts), zamba2-7b train_4k on 16x16 (the
+   Mamba-2 block on each rank's heads) and kimi-k2-1t-a32b decode_32k on
+   2x16x16 (``fsdp_over_pod``), each printed per device with its wall
+   time (the recorder counts as XLA's cost analysis on the CPU:
+   elementwise FLOPs, fused bytes).
 18. the dry run -> scheduler path: ``repro_torch.examples.quickstart``
    (the 12 paper apps profiled, the default predictor, mc/dc/d-dvfs),
-   then ``repro_torch.examples.schedule_jobs`` on phase 17's two cells
+   then ``repro_torch.examples.schedule_jobs`` on phase 17's four cells
    (their per-device roofline as framework jobs of 20 steps, FLOP, GB
    and arithmetic intensity printed; mc/dc/d-dvfs/oracle through one
    PredictionService) and again with no dry-run file (the reference's
@@ -292,8 +298,11 @@ RESTART_STEPS, RESTART_INTERVAL, RESTART_FAIL = 10, 4, 6
 #: the Kimi-K2 MoE layer's tokens (rows, tokens); the dry-run cells
 PSUM_ROUNDS = 3
 DIST_MOE_TOKENS = (2, 64)
+DIST_MAMBA2_TOKENS = 512
 DRYRUN_CELLS = (("smollm-360m", "train_4k", False, ("cuda", "cpu")),
-                ("kimi-k2-1t-a32b", "decode_32k", True, ("cuda",)))
+                ("kimi-k2-1t-a32b", "decode_32k", True, ("cuda",)),
+                ("whisper-large-v3", "decode_32k", False, ("cuda", "cpu")),
+                ("zamba2-7b", "train_4k", False, ("cuda",)))
 
 
 def _check(ok: bool, what: str) -> None:
@@ -1787,6 +1796,59 @@ def _moe_on_mesh(dev) -> None:
     _free()
 
 
+def _mamba2_on_mesh(dev) -> int:
+    """Phase 17(b'): one Zamba2-7B Mamba-2 block at full width (fp32) on
+    the (1, 1) CUDA mesh, the serving route: its scan runs in K3 on each
+    rank's heads (one launch, as without the mesh), the output within
+    1e-5 of its max of the meshless block's (the gated norm sums its
+    squares per rank there), the final state bit for bit. Returns K3's
+    launches on the mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.launch.mesh import make_mesh, set_mesh
+    from repro_torch.models import ssm
+    from repro_torch.models.common import P, sanitize_spec, to_dtensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    cfg = dataclasses.replace(get_config("zamba2-7b"), param_dtype="float32")
+    p = ssm.Mamba2(cfg, dev)
+    p.reset_parameters(torch.Generator(device=dev).manual_seed(14))
+    x = torch.randn((1, DIST_MAMBA2_TOKENS, cfg.d_model),
+                    generator=torch.Generator(device=dev).manual_seed(15),
+                    device=dev)
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    # the block's parameters laid out by its specs, as the model path's
+    specs = ssm.spec_mamba(cfg)
+    dp = ssm.Mamba2(cfg, "meta")
+    for name, t in p.named_parameters():
+        dp._parameters[name] = torch.nn.Parameter(to_dtensor(
+            t, mesh, sanitize_spec(specs[name], tuple(t.shape), mesh)),
+            requires_grad=False)
+    with torch.no_grad():
+        want, want_st = ssm.mamba2_block(p, x, cfg)
+        n0 = ms.launches
+        with implicit_replication(), set_mesh(mesh):
+            got, st = ssm.mamba2_block(
+                dp, to_dtensor(x, mesh, P("data", None, None)), cfg)
+        launches = ms.launches - n0
+    torch.cuda.synchronize()
+    got, h = got.to_local(), st["ssm"].to_local()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    _check(launches == 1, f"mamba2_block on a (1, 1) mesh launched K3 "
+           f"{launches} times")
+    _check(err <= 1e-5 * scale and torch.equal(h, want_st["ssm"]),
+           f"mamba2_block on a (1, 1) mesh != meshless: {err} of {scale}")
+    print(f"   mamba2_block, zamba2-7b (d_inner {cfg.d_inner}, "
+          f"{cfg.d_inner // cfg.ssm_head_dim} heads, state "
+          f"{cfg.ssm_state}, fp32), 1x{DIST_MAMBA2_TOKENS} tokens on a "
+          f"(1, 1) cuda mesh: K3 launched {launches} time on the rank's "
+          f"heads; output max|diff| {err:.3e} of max {scale:.3e} against "
+          f"the meshless block, final state bit for bit", flush=True)
+    del p, dp, x, got, want
+    _free()
+    return launches
+
+
 def _restore_on_mesh(dev, tmp: str) -> None:
     """Phase 17(c): SmolLM-360M's bf16 params and int8 AdamW state saved,
     then restored onto a one-rank CUDA mesh by the spec trees."""
@@ -1853,13 +1915,12 @@ def _restore_on_mesh(dev, tmp: str) -> None:
           f"trees in {restore_s:.1f} s; every shard bit for bit", flush=True)
 
 
-def _dryrun_cells(tmp: str) -> list:
-    """Phase 17(d): the dry run on two production cells, each run in a
+def _start_dryrun(tmp: str) -> tuple:
+    """Phase 17(d): the dry run on four production cells, each run in a
     process of its own (a process opens one process group), all started
-    together. Returns the ``--device cuda`` runs' result rows."""
-    keys = ("flops", "bytes_accessed", "coll_bytes_raw",
-            "coll_bytes_modeled", "coll_counts", "compute_s", "memory_s",
-            "collective_s", "dominant")
+    together, on the host's cores while the card runs phase 17's other
+    parts. Returns (the processes, their start); :func:`_dryrun_cells`
+    collects them."""
     procs = {}
     t0 = time.perf_counter()
     for arch, shape, multi_pod, devices in DRYRUN_CELLS:
@@ -1872,6 +1933,16 @@ def _dryrun_cells(tmp: str) -> list:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True, cwd=ROOT,
                 env=dict(os.environ, PYTHONPATH=str(ROOT / "src"))))
+    return procs, t0
+
+
+def _dryrun_cells(procs: dict, t0: float) -> list:
+    """Phase 17(d), collected: each cell's counts printed and checked
+    (equal on ``--device cuda`` and ``cpu`` where both ran). Returns the
+    ``--device cuda`` runs' result rows."""
+    keys = ("flops", "bytes_accessed", "coll_bytes_raw",
+            "coll_bytes_modeled", "coll_counts", "compute_s", "memory_s",
+            "collective_s", "dominant")
     runs, rows = {}, []
     for (arch, shape, d), (out, proc) in procs.items():
         try:
@@ -1909,29 +1980,38 @@ def _dryrun_cells(tmp: str) -> list:
     return rows
 
 
-def _phase17(dev, card) -> list:
+def _phase17(dev, card) -> tuple:
     import tempfile
     import torch.distributed as dist
     t0 = time.perf_counter()
     print(f"== phase 17: distribution on the card over a one-rank NCCL "
           f"group; card {card}", flush=True)
+    procs = {}
     with tempfile.TemporaryDirectory() as tmp:
-        _dist_group(tmp)
         try:
-            _psum_on_card(dev, card)
-            _moe_on_mesh(dev)
-            _restore_on_mesh(dev, os.path.join(tmp, "ckpt"))
-        finally:
-            dist.destroy_process_group()
-        _free()
-        rows = _dryrun_cells(tmp)
+            _dist_group(tmp)
+            try:
+                # the two timed parts first, on an idle host
+                _psum_on_card(dev, card)
+                _restore_on_mesh(dev, os.path.join(tmp, "ckpt"))
+                procs, t1 = _start_dryrun(tmp)
+                _moe_on_mesh(dev)
+                launches = _mamba2_on_mesh(dev)
+            finally:
+                dist.destroy_process_group()
+            _free()
+        except BaseException:
+            for _, proc in procs.values():
+                proc.kill()
+            raise
+        rows = _dryrun_cells(procs, t1)
     print(f"   phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
-    return rows
+    return rows, launches
 
 
 def _phase18(gp, counters, dev, card, rows) -> dict:
     """Phase 18: the dry run -> scheduler path. The paper's quickstart,
-    then ``schedule_jobs`` on phase 17's two dry-run cells (their
+    then ``schedule_jobs`` on phase 17's four dry-run cells (their
     per-device roofline as framework jobs of 20 steps) and on the
     reference's built-in profiles (no file), each on the card (K1 builds
     the tables) and on the CPU, record for record."""
@@ -2282,9 +2362,10 @@ def main() -> int:
           f"max); {time.perf_counter() - t0:.1f} s in all", flush=True)
     _free()
     _reset(counters)
-    dryrun_rows = _phase17(dev, card)
-    _check(fa.launches == 0 and ms.launches == 0 and gp.launches == 0,
-           "phase 17 launched a kernel")
+    dryrun_rows, p17_scans = _phase17(dev, card)
+    _check(fa.launches == 0 and gp.launches == 0 and
+           ms.launches == 2 * p17_scans == 2,
+           "phase 17 launched a kernel but the Mamba-2 blocks' K3")
     p18 = _phase18(gp, counters, dev, card, dryrun_rows)
 
     t768 = timing[768]
@@ -2336,6 +2417,8 @@ def main() -> int:
     rows[1]["simt_source"] = "src/repro_torch/csrc/flash_attention.cu"
     rows[1]["launches_by_route"] = \
         served[7]["by_route"]["flash_attention"]
+    # phase 17: the Mamba-2 block on the (1, 1) mesh
+    rows[2]["launches_phase17_mesh"] = p17_scans
     rows[1]["launches_by_route_by_phase"] = {
         str(ph): got["by_route"]["flash_attention"]
         for ph, got in served.items() if got["flash_attention"]}

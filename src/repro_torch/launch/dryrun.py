@@ -13,7 +13,10 @@ reference AOT-compiles each cell for 256 or 512 TPU devices, this runs the
 step once on a fake process group of that many ranks
 (:func:`repro_torch.launch.mesh.init_fake_world`): parameters, optimizer
 state, batch and cache are fake tensors (``FakeTensorMode``: shapes and
-dtypes, no memory) laid out as DTensors by the sanitized spec trees, and a
+dtypes, no memory) laid out as DTensors by the sanitized spec trees (an
+axis that does not divide an argument's dim is dropped, as the
+reference drops it; the activations' constraints keep it and split
+unevenly, :func:`repro_torch.models.common.split_spec`), and a
 :class:`~repro_torch.roofline.analysis.Recorder` counts what this rank
 (rank 0) computes, moves and holds. Train runs forward, backward and the
 AdamW update; prefill and decode run ``train/serve.py``'s steps. The

@@ -21,6 +21,15 @@ chosen by the ``impl`` argument alone:
   sequence of at least 8192 positions in whole 2048-position chunks.
 
 Single-token decode is plain torch, as in the reference: no kernel there.
+
+Under a mesh the plain path runs on local shards in one of two layouts.
+Key-parallel (the default, and decode's): q whole on every ``model``
+rank, k and v split over ``model`` on their rows (projected on those
+rows only where the KV heads do not divide ``model``, unevenly where the
+rows do not: Whisper's 1500 frames), partial outputs summed.
+Query-parallel, where the query heads do not divide ``model`` and the
+sequence does (SmolLM-360M's 15 heads on 16): q split on its rows, k and
+v gathered, nothing summed (:func:`_queries_split`).
 """
 from __future__ import annotations
 
@@ -33,7 +42,7 @@ from ..kernels import ops as kops
 from ..kernels.ref import NEG_INF
 from .common import (FSDP, TP, P, apply_rope, assign, check_impl,
                      current_mesh, dense_init, dtype_of, matmul,
-                     maybe_shard, param, residual, sanitize_spec, shard_map)
+                     maybe_shard, param, residual, shard_map, split_spec)
 
 
 class Attention(nn.Module):
@@ -85,7 +94,8 @@ def _heads(t, H: int, hd: int, seq=None):
     ``model`` shards are gathered first: the head count need not divide
     the ``model`` axis (15 heads on 16), and the key-parallel attention
     wants q whole on every ``model`` rank. ``seq``: the sequence's
-    ``model`` split of k or v, kept (:func:`_keys_split`)."""
+    ``model`` split to keep or take (k and v's, :func:`_keys_split`; q's,
+    :func:`_queries_split`, moved from its columns by one all-to-all)."""
     t = maybe_shard(t, P(("pod", FSDP), seq, None))
     return t.reshape(t.shape[0], t.shape[1], H, hd)
 
@@ -93,22 +103,45 @@ def _heads(t, H: int, hd: int, seq=None):
 def _keys_split(p: Attention, S: int):
     """``TP`` when k and v are to be projected on each ``model`` rank's
     key rows only: under a mesh whose ``model`` axis the KV heads do not
-    divide (``wk`` whole over it, 5 heads on 16), for a sequence that
-    does divide. The key-parallel attention reads just those rows, and
-    the partitioner projects no more for the reference (SmolLM-360M
-    train_4k: 16x the K/V products otherwise). Else ``None``."""
+    divide (``wk`` whole over it, 5 heads on 16), for a sequence of more
+    than one row, split unevenly where ``model`` does not divide it
+    (Whisper's 1500 frames, 94 rows a rank). The key-parallel attention
+    reads just those rows, and the partitioner projects no more for the
+    reference, whose attention constrains k and v to that split
+    (SmolLM-360M train_4k: 16x the K/V products otherwise). Else
+    ``None``."""
     mesh = current_mesh()
     from torch.distributed.tensor import DTensor, Replicate
     if mesh is None or TP not in mesh.mesh_dim_names or S <= 1 or \
             not isinstance(p.wk, DTensor):
         return None
-    i = list(mesh.mesh_dim_names).index(TP)
-    if p.wk.placements[i] != Replicate() or S % mesh.size(i):
+    if p.wk.placements[list(mesh.mesh_dim_names).index(TP)] != Replicate():
+        return None
+    return split_spec(P(None, TP), (1, S), mesh)[1]
+
+
+def _queries_split(cfg, S: int, impl: str):
+    """``TP`` when full-sequence attention is to run query-parallel
+    under a mesh: each ``model`` rank attends its own rows of queries
+    over every key (k and v gathered), in place of the key-parallel
+    route's partial outputs all-reduced over ``model``, which is the
+    reference partitioner's choice where the query heads do not divide
+    ``model`` and the sequence does (SmolLM-360M's 15 heads on 16). Not
+    for the kernel's route, nor for the query-chunked one (its chunks
+    slice the rows). Else ``None``."""
+    mesh = current_mesh()
+    if mesh is None or TP not in mesh.mesh_dim_names or S <= 1 or \
+            impl == "flash":
+        return None
+    tp = mesh.size(list(mesh.mesh_dim_names).index(TP))
+    if cfg.n_heads % tp == 0 or S % tp:
         return None
     return TP
 
 
-def _project_qkv(p: Attention, x, cfg, positions):
+def _project_qkv(p: Attention, x, cfg, positions, rows=None):
+    """q, k, v of x; ``rows`` (:func:`_queries_split`): q's sequence
+    split over ``model``."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     seq = _keys_split(p, S)
@@ -119,7 +152,7 @@ def _project_qkv(p: Attention, x, cfg, positions):
         q = q + p.bq.to(x.dtype)
         k = k + p.bk.to(x.dtype)
         v = v + p.bv.to(x.dtype)
-    q = _heads(q, cfg.n_heads, hd)
+    q = _heads(q, cfg.n_heads, hd, rows)
     k = _heads(k, cfg.n_kv_heads, hd, seq)
     v = _heads(v, cfg.n_kv_heads, hd, seq)
     if positions is not None:
@@ -151,18 +184,31 @@ def attention(p: Attention, x, cfg, positions=None, causal: bool = True,
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    chunked = causal and S >= 8192 and S % 2048 == 0
+    rows = None if chunked else _queries_split(cfg, S, impl)
+    q, k, v = _project_qkv(p, x, cfg, positions, rows)
     if impl == "flash":
         out = kops.flash_attention(q, k, v, causal=causal,
                                    window=cfg.sliding_window)
         out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
-    elif causal and S >= 8192 and S % 2048 == 0:
+    elif chunked:
         out = _sdpa_chunked(q, k, v, cfg)
     else:
         mask = (causal_mask(S, S, cfg.sliding_window, device=x.device)[0]
                 if causal else None)
-        out = _plain_gqa(q, k.transpose(1, 2), v.transpose(1, 2), mask)
-    return residual(matmul(out, p.wo.to(x.dtype))), (k, v)
+        out = _plain_gqa(q, k.transpose(1, 2), v.transpose(1, 2), mask,
+                         rows)
+    return residual(matmul(_heads_split(out, rows), p.wo.to(x.dtype))), \
+        (k, v)
+
+
+def _heads_split(out, rows):
+    """The query-parallel route's output (rows split over ``model``) laid
+    out for the row-parallel ``wo``: split on its last dim instead, one
+    all-to-all over ``model``. Else ``out`` as it is."""
+    if rows is None:
+        return out
+    return maybe_shard(out, P(("pod", FSDP), None, TP))
 
 
 def _sdpa_chunked(q, k, v, cfg, chunk: int = 2048):
@@ -180,15 +226,18 @@ def _sdpa_chunked(q, k, v, cfg, chunk: int = 2048):
     return torch.cat(outs, dim=1)
 
 
-def _project_cross(p: Attention, x, source, cfg):
+def _project_cross(p: Attention, x, source, cfg, rows=None):
     """q from x, k/v from ``source`` (B, Sk, D): no RoPE and no bias, as
-    the reference's ``encdec._cross_attention``."""
-    B, S, _ = x.shape
+    the reference's ``encdec._cross_attention``; under a mesh k and v on
+    each ``model`` rank's rows of ``source`` (:func:`_keys_split`)."""
     hd = cfg.resolved_head_dim
     src = source.to(x.dtype)
-    q = _heads(matmul(x, p.wq.to(x.dtype)), cfg.n_heads, hd)
-    k = _heads(matmul(src, p.wk.to(x.dtype)), cfg.n_kv_heads, hd)
-    v = _heads(matmul(src, p.wv.to(x.dtype)), cfg.n_kv_heads, hd)
+    seq = _keys_split(p, src.shape[1])
+    q = _heads(matmul(x, p.wq.to(x.dtype)), cfg.n_heads, hd, rows)
+    k = _heads(matmul(src, p.wk.to(x.dtype), split_seq=seq is not None),
+               cfg.n_kv_heads, hd, seq)
+    v = _heads(matmul(src, p.wv.to(x.dtype), split_seq=seq is not None),
+               cfg.n_kv_heads, hd, seq)
     if current_mesh() is not None:
         # their grads come back transposed; DTensor's view of a reshape's
         # grad fails on a non-contiguous shard
@@ -215,13 +264,15 @@ def cross_attention(p: Attention, x, source, cfg, impl: str = "flash"):
     ``encdec._cross_attention``."""
     check_impl(impl)
     B, S, _ = x.shape
-    q, k, v = _project_cross(p, x, source, cfg)
+    rows = _queries_split(cfg, S, impl)
+    q, k, v = _project_cross(p, x, source, cfg, rows)
     if impl == "flash":
         out = kops.flash_attention(q, k, v, causal=False)
         out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
     else:
-        out = _plain_gqa(q, k.transpose(1, 2), v.transpose(1, 2))
-    return residual(matmul(out, p.wo.to(x.dtype)))
+        out = _plain_gqa(q, k.transpose(1, 2), v.transpose(1, 2),
+                         rows=rows)
+    return residual(matmul(_heads_split(out, rows), p.wo.to(x.dtype)))
 
 
 def cross_attention_decode(p: Attention, x, source, cfg):
@@ -232,14 +283,24 @@ def cross_attention_decode(p: Attention, x, source, cfg):
     return residual(matmul(out, p.wo.to(x.dtype)))
 
 
-def _plain_gqa(q, k, v, valid=None):
+def _plain_gqa(q, k, v, valid=None, rows=None):
     """q (B, S, Hq, hd) over k/v (B, Hkv, Sk, hd), as the reference's
     ``_sdpa``: products of the q-dtype values summed in fp32 (its einsums
     with preferred_element_type=float32), probabilities rounded to q's
     dtype. ``valid`` masks keys: (Sk,) for every query alike, or (S, Sk)
-    per query. Returns (B, S, Hq*hd) in q's dtype."""
+    per query. Returns (B, S, Hq*hd) in q's dtype. Under a mesh,
+    query-parallel where ``rows`` (:func:`_queries_split`) splits q's
+    rows over ``model``, else key-parallel."""
     if current_mesh() is not None:
+        if rows is not None:
+            return _query_parallel_gqa(q, k, v, valid)
         return _key_parallel_gqa(q, k, v, valid)
+    return _gqa(q, k, v, valid)
+
+
+def _gqa(q, k, v, valid=None):
+    """:func:`_plain_gqa` on plain tensors (a device's whole problem, or
+    its shard of queries)."""
     B, S, Hq, hd = q.shape
     K, Sk = k.shape[1], k.shape[2]
     G = Hq // K
@@ -257,6 +318,26 @@ def _plain_gqa(q, k, v, valid=None):
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq * hd)
 
 
+def _query_parallel_gqa(q, k, v, valid=None):
+    """:func:`_plain_gqa` under a mesh with q's rows split over ``model``:
+    k and v are gathered whole over ``model`` and each rank attends its
+    queries over every key, the meshless arithmetic on its rows; the
+    output keeps q's row split, and nothing is summed over ``model``."""
+    B, S, Hq, hd = q.shape
+    mesh = current_mesh()
+    dp = split_spec(P(("pod", FSDP)), (B,), mesh)[0]
+    whole = P(dp, None, None, None)
+    args = [q, k, v]
+    in_specs = [P(dp, TP, None, None), whole, whole]
+    if valid is not None:
+        args.append(valid)
+        in_specs.append(P(TP, None) if valid.dim() == 2 else P(None))
+    (out,) = shard_map(lambda *a: (_gqa(*a),), mesh, in_specs,
+                       [P(dp, TP, None)],
+                       out_shapes=[(B, S, Hq * hd)])(*args)
+    return out
+
+
 def _key_parallel_gqa(q, k, v, valid=None):
     """:func:`_plain_gqa` under a mesh, with the reference's key-sequence
     parallelism: q is whole on every ``model`` rank, k and v are sharded
@@ -270,9 +351,9 @@ def _key_parallel_gqa(q, k, v, valid=None):
     K = k.shape[1]
     G = Hq // K
     mesh = current_mesh()
-    dp = sanitize_spec(P(("pod", FSDP)), (B,), mesh)[0]
+    dp = split_spec(P(("pod", FSDP)), (B,), mesh)[0]
     rows = P(dp, None, None, None)
-    keys = sanitize_spec(P(dp, None, TP, None), tuple(k.shape), mesh)
+    keys = split_spec(P(dp, None, TP, None), tuple(k.shape), mesh)
     group = mesh.get_group(TP) if keys[2] else None
 
     def local(q, k, v, *mask):

@@ -128,6 +128,43 @@ def sanitize_spec(spec, shape, mesh):
     return P(*out)
 
 
+def _splits(n: int, k: int) -> bool:
+    """Whether ``n`` rows split over ``k`` ranks leave none empty: in
+    DTensor's uneven ``Shard`` each rank holds ``ceil(n / k)`` rows, the
+    last ones fewer."""
+    return (k - 1) * -(-n // k) < n
+
+
+def split_spec(spec, shape, mesh):
+    """An activation's spec on ``mesh`` as the reference's
+    :func:`maybe_shard` keeps it: each entry cut to the axes the mesh has,
+    an axis kept where it does not divide the dim. Such a dim is split
+    unevenly (chunks of ``ceil(n / k)``, the last shorter: Whisper's 1500
+    frames are 94 rows a rank on 16, as GSPMD pads them to 94 a device).
+    Of each entry's axes, those that divide, then at most one that does
+    not, if it leaves no rank empty (a batch of 1 runs replicated: on a
+    device GSPMD's padded split holds the same one row)."""
+    axes = mesh_axes(mesh)
+    out = []
+    for i, entry in enumerate(tuple(spec)):
+        if entry is None or i >= len(shape):
+            out.append(None)
+            continue
+        names = entry if isinstance(entry, tuple) else (entry,)
+        kept, size = [], 1
+        for a in (a for a in names if a in axes):
+            if shape[i] % (size * axes[a]) == 0:
+                kept.append(a)
+                size *= axes[a]
+                continue
+            if _splits(shape[i] // size, axes[a]):
+                kept.append(a)
+            break
+        out.append(tuple(kept) if len(kept) > 1 else
+                   (kept[0] if kept else None))
+    return P(*out)
+
+
 def podify(spec_tree):
     """Batch/cache spec trees: extend the 'data' axis to ('pod','data') so
     serve inputs shard across pods too (params stay pod-replicated — pure
@@ -161,10 +198,9 @@ def sharded(local, shape, mesh, spec):
     whose shard on this rank is ``local``."""
     from torch.distributed.tensor import DTensor
     shape = tuple(shape)
-    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
     return DTensor.from_local(local, mesh, placements(mesh, spec),
                               run_check=False, shape=torch.Size(shape),
-                              stride=stride)
+                              stride=_contiguous_stride(shape))
 
 
 def mesh_zeros(make, spec_tree, device):
@@ -208,29 +244,67 @@ def placements(mesh, spec):
 
 def maybe_shard(x, spec):
     """Redistribute the DTensor ``x`` to ``spec`` on the current mesh (the
-    reference's ``with_sharding_constraint``), each entry cut to the axes
-    that divide its dim (a batch of 1 runs replicated); a no-op with no
-    mesh current or on a plain tensor (a local shard inside
-    :func:`shard_map`)."""
+    reference's ``with_sharding_constraint``), as :func:`split_spec` cuts
+    it: an axis that does not divide its dim splits it unevenly, as the
+    reference's partitioner pads it. A no-op with no mesh current or on a
+    plain tensor (a local shard inside :func:`shard_map`)."""
     mesh = current_mesh()
     if mesh is None:
         return x
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
-    return x.redistribute(mesh, placements(mesh, sanitize_spec(
+    return _redistribute(x, mesh, placements(mesh, split_spec(
         spec, tuple(x.shape), mesh)))
+
+
+def _redistribute(x, mesh, pl):
+    """``x.redistribute(mesh, pl)``, with a move of the ``model`` split
+    from one dim to another as one all-to-all over ``model`` (each rank
+    sends each other rank the block it will hold), as the partitioner
+    moves it. DTensor does the same on the card with an op the dry run
+    does not see, and gathers the whole tensor over a CPU group."""
+    from torch.distributed.tensor import DTensor, Shard
+    names = list(mesh.mesh_dim_names)
+    if TP in names:
+        i = names.index(TP)
+        src, dst, k = x.placements[i], pl[i], mesh.size(i)
+        others = [p for j, p in enumerate(x.placements) if j != i]
+        if isinstance(src, Shard) and isinstance(dst, Shard) and \
+                src.dim != dst.dim and not x.shape[src.dim] % k and \
+                not x.shape[dst.dim] % k and \
+                Shard(src.dim) not in others and Shard(dst.dim) not in others:
+            from torch.distributed._functional_collectives import \
+                all_to_all_single_autograd
+            a, b = src.dim, dst.dim
+            send = torch.stack(x.to_local().chunk(k, dim=b))
+            got = all_to_all_single_autograd(send, None, None,
+                                             mesh.get_group(i))
+            moved = list(x.placements)
+            moved[i] = Shard(b)
+            shape = tuple(x.shape)
+            x = DTensor.from_local(
+                got.movedim(0, a).flatten(a, a + 1), mesh, moved,
+                run_check=False, shape=torch.Size(shape),
+                stride=_contiguous_stride(shape))
+    return x.redistribute(mesh, pl)
 
 
 def to_dtensor(x, mesh, spec):
     """``x`` as a DTensor on ``mesh`` laid out as ``spec``. A plain tensor
     counts as the same full value on every rank, so each rank keeps its
-    own slice and nothing is sent."""
+    own slice and nothing is sent. A DTensor already so laid out comes
+    back as it is, with no autograd node: a gradient that reaches it as a
+    partial sum stays one, and the partial gradients of a block's
+    projections add up before one all-reduce (not one a projection)."""
     from torch.distributed.tensor import DTensor, Replicate
     if not isinstance(x, DTensor):
         x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
                                run_check=False)
-    return x.redistribute(mesh, placements(mesh, spec))
+    want = tuple(placements(mesh, spec))
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
 
 
 def shard_bounds(shape, mesh, placements) -> tuple:
@@ -314,14 +388,16 @@ def assign(dst, index, src):
     local[tuple(dst_ix)] = src[tuple(src_ix)]
 
 
-def shard_map(f, mesh, in_specs, out_specs, out_partial=()):
+def shard_map(f, mesh, in_specs, out_specs, out_partial=(), out_shapes=()):
     """Run ``f`` on local shards, as the reference's ``shard_map``: each
     argument is redistributed to its spec in ``in_specs`` (a plain tensor
     counts as replicated) and ``f`` gets its local shard; each output of
     ``f`` is a local shard laid out as its spec in ``out_specs`` and, over
     the axes in the matching entry of ``out_partial``, a partial sum that
     is all-reduced to a replicated value (the reference's ``psum`` at the
-    end of the body).
+    end of the body). A spec may split a dim unevenly (:func:`split_spec`);
+    an output split so gives its global shape in ``out_shapes`` (one
+    entry an output, None where every split divides).
 
     Differentiable, as the transpose of the reference's ``shard_map``.
     The body's work is split over the mesh axes on which an output is
@@ -357,31 +433,43 @@ def shard_map(f, mesh, in_specs, out_specs, out_partial=()):
                 grad_placements=grad_pl))
         outs = f(*local)
         res = []
-        for o, s, part, pl in zip(outs, out_specs, parts, out_pl):
-            whole = [names[i] for i in split if pl[i].is_replicate()]
+        for i, (o, s, part, pl) in enumerate(zip(outs, out_specs, parts,
+                                                 out_pl)):
+            whole = [names[j] for j in split if pl[j].is_replicate()]
             if whole and o.requires_grad:
                 raise ValueError(
                     f"shard_map: an output laid out as {s} is replicated "
                     f"over {whole}, over which the body's work is split; "
                     "its gradient would be counted once per rank")
-            d = DTensor.from_local(o, mesh, pl, run_check=False)
+            shape = out_shapes[i] if i < len(out_shapes) else None
+            d = (DTensor.from_local(o, mesh, pl, run_check=False)
+                 if shape is None else DTensor.from_local(
+                     o, mesh, pl, run_check=False, shape=torch.Size(shape),
+                     stride=_contiguous_stride(shape)))
             res.append(d.redistribute(mesh, placements(mesh, s))
                        if part else d)
         return tuple(res)
     return run
 
 
-def matmul(x, w, split_seq: bool = False):
+def _contiguous_stride(shape) -> tuple:
+    return tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+
+
+def matmul(x, w, split_seq: bool = False, split_out: bool = False):
     """``x @ w`` for a projection ``w`` (in, out). Under a mesh, with ``w``
     a DTensor, the product runs on local shards in the layout its spec
     implies, not one DTensor's strategy search picks: ``w``'s FSDP shards
     are gathered (over ``data``/``pod``), its ``model`` split decides
     column parallelism (x whole over ``model``, the output split) or row
     parallelism (x split on its last dim, the partial outputs summed by
-    an all-reduce), and x keeps its batch over (pod, data). With
-    ``split_seq`` and ``w`` whole over ``model``, x's second dim (the
-    sequence) is split over ``model`` instead, and so is the output:
-    each rank projects only its rows."""
+    an all-reduce), and x keeps its batch over (pod, data). With ``w``
+    whole over ``model``: ``split_seq`` splits x's second dim (the
+    sequence) over ``model``, and so the output's, each rank projecting
+    only its rows; ``split_out`` splits the output's last dim, each rank
+    taking its columns of ``w`` (the reference's vocab-parallel logits,
+    whose constraint its partitioner carries into the product). Either
+    split may be uneven (:func:`split_spec`)."""
     mesh = current_mesh()
     if mesh is None:
         return x @ w
@@ -391,15 +479,19 @@ def matmul(x, w, split_seq: bool = False):
     names = list(mesh.mesh_dim_names)
     on_tp = w.placements[names.index(TP)] if TP in names else None
     row, col = on_tp == Shard(0), on_tp == Shard(1)
-    dp = sanitize_spec(P(("pod", FSDP)), (x.shape[0],), mesh)[0]
+    dp = split_spec(P(("pod", FSDP)), (x.shape[0],), mesh)[0]
     mid = [None] * (x.dim() - 2)
     if split_seq and not (row or col) and mid:
-        mid[0] = sanitize_spec(P(None, TP), tuple(x.shape[:2]), mesh)[1]
+        mid[0] = split_spec(P(None, TP), tuple(x.shape[:2]), mesh)[1]
+    out_tp = TP if col else None
+    if split_out and not (row or col or any(mid)):
+        out_tp = split_spec(P(TP), (w.shape[-1],), mesh)[0]
     (y,) = shard_map(lambda a, b: (a @ b,), mesh,
                      [P(dp, *mid, TP if row else None),
-                      P(TP if row else None, TP if col else None)],
-                     [P(dp, *mid, TP if col else None)],
-                     out_partial=((TP,) if row else (),))(x, w)
+                      P(TP if row else None, out_tp)],
+                     [P(dp, *mid, out_tp)],
+                     out_partial=((TP,) if row else (),),
+                     out_shapes=[(*x.shape[:-1], w.shape[-1])])(x, w)
     return y
 
 
@@ -482,14 +574,79 @@ def check_impl(impl: str) -> None:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
 
 
-def layer_call(cfg, fn, *args):
+def layer_call(cfg, fn, *args, keep_rows: bool = False):
     """``fn(*args)``, rematerialised in the backward pass when
     ``cfg.remat == "full"`` (the reference wraps its layer bodies in
     ``jax.checkpoint``): only the layer's inputs are kept, and its
-    activations are recomputed when the gradient reaches it."""
-    if cfg.remat == "full":
+    activations are recomputed when the gradient reaches it.
+
+    ``keep_rows`` (the attention layers' stacks): under a mesh the kept
+    input, the residual stream whole over ``model``, is kept as this
+    rank's rows of it and gathered again for the recompute, as the
+    reference's partitioner keeps an attention layer's input (1/16 of it
+    on 16 ranks; one all-gather a layer in the backward). Its gradient
+    passes whole, as without the split."""
+    if cfg.remat != "full":
+        return fn(*args)
+    split = _rows_kept(args[0]) if keep_rows else None
+    if split is None:
         return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    whole, box = args[0].placements, [args[0]]
+
+    def body(rows, *rest):
+        # the forward takes the whole input it was given; the recompute
+        # gathers it from the kept rows
+        x = _Rejoin.apply(rows, box.pop()) if box else \
+            _Relayout.apply(rows, whole)
+        return fn(x, *rest)
+    return checkpoint(body, _Relayout.apply(args[0], split), *args[1:],
+                      use_reentrant=False)
+
+
+def _rows_kept(x):
+    """The placements of ``x`` with its rows (dim 1) split over
+    ``model``, for a DTensor whole over ``model`` whose rows split there
+    (:func:`split_spec`), while gradients are recorded; else None."""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = current_mesh()
+    if mesh is None or TP not in mesh.mesh_dim_names or \
+            not isinstance(x, DTensor) or x.dim() < 2 or \
+            not torch.is_grad_enabled():
+        return None
+    i = list(mesh.mesh_dim_names).index(TP)
+    if not x.placements[i].is_replicate() or \
+            split_spec(P(None, TP), tuple(x.shape[:2]), mesh)[1] is None:
+        return None
+    out = list(x.placements)
+    out[i] = Shard(1)
+    return tuple(out)
+
+
+class _Relayout(torch.autograd.Function):
+    """A DTensor redistributed to ``placements`` (its rows cut out, or
+    gathered whole); the gradient passes as it comes: whole over
+    ``model`` on each side of the cut."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Rejoin(torch.autograd.Function):
+    """``whole`` (the tensor ``rows`` was cut from) in place of ``rows``:
+    nothing moves; the gradient goes to ``rows``."""
+
+    @staticmethod
+    def forward(ctx, rows, whole):
+        return whole.view_as(whole)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 # ---------------------------------------------------------------------- #
@@ -658,4 +815,5 @@ def unembed(p: Embeddings, x, cfg):
     # vocab-parallel logits, as the reference: x whole on every ``model``
     # rank, so the product splits the vocab and not d_model
     x = maybe_shard(x, P(("pod", FSDP), None, None))
-    return maybe_shard(matmul(x, w.to(x.dtype)), P(("pod", FSDP), None, TP))
+    return maybe_shard(matmul(x, w.to(x.dtype), split_out=True),
+                       P(("pod", FSDP), None, TP))

@@ -145,7 +145,7 @@ def encode(params: EncDecLM, frames, cfg, impl: str = "flash"):
         return x + mlp(lp.mlp, ln(x, lp.mlp_norm, cfg.norm_eps))
 
     for lp in params.enc_layers:
-        x = layer_call(cfg, body, x, lp)
+        x = layer_call(cfg, body, x, lp, keep_rows=True)
     return ln(x, params.enc_final_norm, cfg.norm_eps)
 
 
@@ -177,7 +177,7 @@ def forward(params: EncDecLM, tokens, cfg, frames=None,
         return _dec_layer(x, lp, enc_out, cfg, impl)[0]
 
     for lp in params.dec_layers:
-        x = layer_call(cfg, body, x, lp)
+        x = layer_call(cfg, body, x, lp, keep_rows=True)
     return (_head(params, x, cfg),
             torch.zeros((), dtype=torch.float32, device=x.device))
 

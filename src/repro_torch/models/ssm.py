@@ -30,8 +30,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
-from .common import (FSDP, TP, P, check_impl, dense_init, dtype_of, matmul,
-                     param, residual, rms_norm, split_last)
+from .common import (FSDP, TP, P, check_impl, current_mesh, dense_init,
+                     dtype_of, matmul, param, residual, rms_norm, shard_map,
+                     split_last, split_spec)
 
 
 def _dt_rank(cfg) -> int:
@@ -99,10 +100,12 @@ def causal_conv1d(x, w, b, state=None):
     Returns (y (B, L, C), new_state (B, K-1, C))."""
     B, L, C = x.shape
     K = w.shape[1]
+    # zeros laid out as x (under a mesh a DTensor's shard: a tensor of
+    # the global shape would be held whole on every rank)
     if state is None:
-        state = torch.zeros((B, K - 1, C), dtype=x.dtype, device=x.device)
+        state = torch.zeros_like(x[:, :1]).expand(B, K - 1, C)
     xp = torch.cat([state, x], dim=1)                      # (B, L+K-1, C)
-    y = torch.zeros((B, L, C), dtype=x.dtype, device=x.device)
+    y = torch.zeros_like(x)
     for i in range(K):  # K is small (4): unrolled shifted adds
         y = y + xp[:, i:i + L, :] * w[:, i].to(x.dtype)
     new_state = xp[:, L:, :] if K > 1 else state
@@ -311,33 +314,108 @@ def mamba2_block(p: Mamba2, x, cfg, state=None, impl: str = "flash"):
     likewise, every state row the head's A. One rounding differs from the
     reference's recurrence: it rounds each step's ``h·C`` to u's dtype
     before adding ``D⊙u``, the kernel adds them in fp32. At fp32 that is no difference; in bf16 it
-    stays inside the output's last rounding (one ulp)."""
+    stays inside the output's last rounding (one ulp).
+
+    Under a mesh whose ``model`` axis divides the heads, everything from
+    the second split to the gated norm runs on each rank's heads
+    (:func:`_mamba2_sharded`)."""
     check_impl(impl)
-    B, L, _ = x.shape
     Di, N = cfg.d_inner, cfg.ssm_state
-    Pd = cfg.ssm_head_dim
-    H = Di // Pd
+    H = Di // cfg.ssm_head_dim
     proj = matmul(x, p.in_proj.to(x.dtype))
     z, xBC, dt_raw = split_last(proj, (Di, Di + 2 * N, H))
     conv_state = state["conv"] if state is not None else None
     xBC, new_conv = causal_conv1d(xBC, p.conv_w, p.conv_b, conv_state)
     xBC = F.silu(xBC)
     xs, Bm, Cm = split_last(xBC, (Di, N, N))
-    dt = F.softplus(dt_raw.float() + p.dt_bias[None, None])   # (B, L, H)
-    A = -torch.exp(p.A_log)
-    if impl == "flash" and state is None and L > 1:
-        dt_c = dt.to(x.dtype).float().repeat_interleave(Pd, dim=-1)
+    h0 = state["ssm"] if state is not None else None
+    mesh = current_mesh()
+    if mesh is not None and TP in mesh.mesh_dim_names and \
+            H % mesh.size(list(mesh.mesh_dim_names).index(TP)) == 0:
+        y, h_last = _mamba2_sharded(p, xs, Bm, Cm, dt_raw, z, h0, cfg,
+                                    impl, x.dtype, mesh)
+    else:
+        y, h_last = _mamba2_core(xs, Bm, Cm, dt_raw, z, p.dt_bias, p.A_log,
+                                 p.D, p.norm_w, h0, cfg, impl, x.dtype,
+                                 rms_norm)
+    return (residual(matmul(y, p.out_proj.to(x.dtype))),
+            {"conv": new_conv, "ssm": h_last})
+
+
+def _mamba2_core(xs, Bm, Cm, dt_raw, z, dt_bias, A_log, D, norm_w, h0, cfg,
+                 impl, dtype, norm):
+    """The Mamba-2 block from its split projections to the gated norm, on
+    plain tensors: all the heads, or a rank's heads (``xs``, ``dt_raw``,
+    ``z`` and the per-head parameters cut to them; ``norm`` then sums
+    over the ranks). Returns (y (B, L, Di) in ``dtype``, h_last)."""
+    B, L, Di = xs.shape
+    N = Bm.shape[-1]
+    Pd = cfg.ssm_head_dim
+    H = Di // Pd
+    dt = F.softplus(dt_raw.float() + dt_bias[None, None])   # (B, L, H)
+    A = -torch.exp(A_log)
+    if impl == "flash" and h0 is None and L > 1:
+        dt_c = dt.to(dtype).float().repeat_interleave(Pd, dim=-1)
         A_c = A.repeat_interleave(Pd)[:, None].expand(Di, N).contiguous()
         y, h_last = kops.mamba_scan(xs.float().contiguous(), dt_c, A_c,
                                     Bm.float().contiguous(),
                                     Cm.float().contiguous(),
-                                    p.D.repeat_interleave(Pd))
+                                    D.repeat_interleave(Pd))
         h_last = h_last.reshape(B, H, Pd, N)
     else:
-        h0 = state["ssm"] if state is not None else None
-        y, h_last = mamba2_scan(xs.reshape(B, L, H, Pd), dt, A, Bm, Cm,
-                                p.D, h0)
-    y = y.reshape(B, L, Di).to(x.dtype) * F.silu(z)
-    y = rms_norm(y, p.norm_w, cfg.norm_eps)
-    return (residual(matmul(y, p.out_proj.to(x.dtype))),
-            {"conv": new_conv, "ssm": h_last})
+        y, h_last = mamba2_scan(xs.reshape(B, L, H, Pd), dt, A, Bm, Cm, D,
+                                h0)
+    y = y.reshape(B, L, Di).to(dtype) * F.silu(z)
+    return norm(y, norm_w, cfg.norm_eps), h_last
+
+
+def _mamba2_sharded(p: Mamba2, xs, Bm, Cm, dt_raw, z, h0, cfg, impl,
+                    dtype, mesh):
+    """:func:`_mamba2_core` under a mesh, on each ``model`` rank's heads
+    (a shard of Di and of H, as the partitioner keeps them): B and C are
+    gathered whole, the scan and the gate run locally, and the gated
+    norm sums its squares on the local shard and all-reduces one value a
+    row over ``model``. (On DTensors each of these ops' backward gathered
+    its Di-split operands over ``model``: Zamba2 train_4k moved 3.3x the
+    reference's collective bytes.) ``impl`` picks each rank's route as
+    with no mesh: ``"flash"`` runs the scan kernel on its heads."""
+    B, L = xs.shape[:2]
+    Di = xs.shape[-1]
+    group = mesh.get_group(TP)
+    dp = split_spec(P(("pod", FSDP)), (B,), mesh)[0]
+    cols, whole, heads = P(dp, None, TP), P(dp, None, None), P(TP)
+    state = P(dp, TP, None, None)
+
+    def norm(y, w, eps):
+        yf = y.float()
+        var = _PSum.apply((yf * yf).sum(dim=-1, keepdim=True), group) / Di
+        return (yf * torch.rsqrt(var + eps) * w.float()).to(y.dtype)
+
+    def local(xs, Bm, Cm, dt_raw, z, dt_bias, A_log, D, norm_w, *h0):
+        return _mamba2_core(xs, Bm, Cm, dt_raw, z, dt_bias, A_log, D,
+                            norm_w, h0[0] if h0 else None, cfg, impl,
+                            dtype, norm)
+
+    args = [xs, Bm, Cm, dt_raw, z, p.dt_bias, p.A_log, p.D, p.norm_w]
+    specs = [cols, whole, whole, cols, cols, heads, heads, heads, heads]
+    if h0 is not None:
+        args.append(h0)
+        specs.append(state)
+    return shard_map(local, mesh, specs, [cols, state])(*args)
+
+
+class _PSum(torch.autograd.Function):
+    """An all-reduce (sum) over ``group`` whose gradient is the
+    all-reduce of the gradients: the sum feeds every rank's result."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from torch.distributed import _functional_collectives as funcol
+        ctx.group = group
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as funcol
+        return funcol.wait_tensor(funcol.all_reduce(g, "sum",
+                                                    ctx.group)), None

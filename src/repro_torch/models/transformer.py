@@ -166,7 +166,7 @@ def forward(params: TransformerLM, tokens, cfg, vision_embeds=None,
 
     for _, stack in params.stacks():
         for lp in stack:
-            x, aux = layer_call(cfg, body, x, lp)
+            x, aux = layer_call(cfg, body, x, lp, keep_rows=True)
             if aux is not None:
                 aux_total = aux_total + aux
     x = rms_norm(x, params.final_norm, cfg.norm_eps)

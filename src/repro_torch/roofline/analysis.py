@@ -82,7 +82,11 @@ recorder to each probe.
   all-gather s·(N-1)/N, reduce-scatter s·(N-1), all-to-all s·(N-1)/N,
   permute s).
 * memory: argument, output and alias bytes from the step's inputs and
-  outputs, and temp = the peak of live local bytes beyond the arguments.
+  outputs, and temp = the peak of the live local bytes of the storages
+  that hold a buffer the fusion model above materializes (written by an
+  op that is no elementwise one, or read outside its fusion), less the
+  arguments and the outputs, which XLA counts apart: an eager
+  intermediate inside a fusion is not held.
 
 The hardware constants stay the reference's (TPU v5e class: 197 TFLOP/s
 bf16, 819 GB/s HBM, ~50 GB/s/link ICI): they are the scheduler's data
@@ -274,9 +278,13 @@ class Recorder(torch.utils._python_dispatch.TorchDispatchMode):
         self._depth = 0
         self._entered = 0
         self._local = WeakIdKeyDictionary()
-        self._live = 0
-        self._peak = 0
+        # the storages the step allocates, numbered, and each allocation
+        # and release in order: (storage number, +bytes or -bytes)
         self._stores = WeakIdKeyDictionary()
+        self._events = []
+        self._n_stores = 0
+        self._allocated = set()
+        self._store_of = {}                  # buffer -> storage number
         # the op log: (class, reads, writes); a read is (buffer, bytes,
         # view), a write (buffer, bytes); a buffer is an int
         self._log = []
@@ -305,15 +313,33 @@ class Recorder(torch.utils._python_dispatch.TorchDispatchMode):
         self._entered -= 1
         if self._entered:                    # DTensor's re-dispatch
             return super().__exit__(*exc)
-        self.trace.temp_bytes = self._peak
         # an argument written in place returns in its new version (the
         # reference donates it to the step's outputs)
         for st, b in list(self._args.items()):
             if self._sid.get(st, b) != b:
                 self._out.add(self._sid[st])
-        self.trace.bytes = _fused_bytes(self._log, self._cap, self._out)
+        self.trace.bytes, kept = _fused_bytes(self._log, self._cap,
+                                              self._out)
+        self.trace.temp_bytes = self._temp_peak(kept)
         self._log = []
+        self._events = None
         return super().__exit__(*exc)
+
+    def _temp_peak(self, kept) -> int:
+        """The peak of the live bytes of the storages that hold a buffer
+        the fusion model materializes (``kept``: written by an op that
+        is no elementwise one, or read outside its fusion, or a step
+        output), less the step's outputs: XLA holds no intermediate of
+        a fusion, and counts outputs and arguments apart from its
+        temporaries."""
+        out = {self._store_of.get(b) for b in self._out}
+        held = {self._store_of[b] for b in kept if b in self._store_of} - out
+        live = peak = 0
+        for n, nbytes in self._events:
+            if n in held:
+                live += nbytes
+                peak = max(peak, live)
+        return peak
 
     # ------------------------------------------------------------------ #
     def _new(self, nbytes: int) -> int:
@@ -328,6 +354,7 @@ class Recorder(torch.utils._python_dispatch.TorchDispatchMode):
         if b is None:
             b = self._new(st.nbytes())
             self._sid[st] = b
+            self._store_of[b] = self._number(st)
         return b
 
     def _write(self, t) -> int:
@@ -336,25 +363,36 @@ class Recorder(torch.utils._python_dispatch.TorchDispatchMode):
         self._buffer(t)
         b = self._new(st.nbytes())
         self._sid[st] = b
+        self._store_of[b] = self._number(st)
         return b
+
+    def _number(self, st) -> int:
+        n = self._stores.get(st)
+        if n is None:
+            n = self._stores[st] = self._n_stores
+            self._n_stores += 1
+        return n
 
     def _read(self, t) -> tuple:
         return (self._buffer(t), min(_nbytes(t), t.untyped_storage().nbytes()),
                 (t.storage_offset(), tuple(t.shape), tuple(t.stride()),
                  t.dtype))
 
-    def _free(self, nbytes):
-        self._live -= nbytes
+    def _free(self, n, nbytes):
+        if self._events is not None:
+            self._events.append((n, -nbytes))
 
     def _alloc(self, t):
+        """Count ``t``'s storage live from now until it is released (once
+        a storage: a second result in it is a view)."""
         st = t.untyped_storage()
-        if st in self._stores:
+        n = self._number(st)
+        if n in self._allocated:
             return
-        self._stores[st] = True
+        self._allocated.add(n)
         nbytes = st.nbytes()
-        self._live += nbytes
-        self._peak = max(self._peak, self._live)
-        weakref.finalize(st, self._free, nbytes)
+        self._events.append((n, nbytes))
+        weakref.finalize(st, self._free, n, nbytes)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -541,11 +579,12 @@ def _integer_power(args) -> bool:
     return isinstance(e, (int, float)) and float(e).is_integer()
 
 
-def _fused_bytes(log, cap, step_out) -> float:
-    """The bytes of the op log ``log`` (module docstring): elementwise
-    ops grouped into fusions (union-find) along the producer-consumer
-    edges of values with one reader, each group charged what enters it
-    and what leaves it; every other entry its operands and results."""
+def _fused_bytes(log, cap, step_out) -> tuple:
+    """(bytes, the buffers written) of the op log ``log`` (module
+    docstring): elementwise ops grouped into fusions (union-find) along
+    the producer-consumer edges of values with one reader, each group
+    charged what enters it and what leaves it; every other entry its
+    operands and results."""
     parent = list(range(len(log)))
 
     def find(i):
@@ -570,6 +609,7 @@ def _fused_bytes(log, cap, step_out) -> float:
                     len(readers[b]) == 1:
                 parent[find(i)] = find(j)
     total = 0.0
+    kept = set()                  # the buffers written out of a fusion
     seen = set()                  # (group, buffer, view) reads charged
     per_buf = {}                  # (group, buffer) -> bytes charged
     for i, (cls, reads, writes) in enumerate(log):
@@ -587,7 +627,8 @@ def _fused_bytes(log, cap, step_out) -> float:
             if cls != _EW or b in step_out or any(
                     group(r) != g for r in readers.get(b, ())):
                 total += nb
-    return total
+                kept.add(b)
+    return total, kept
 
 
 def _tensors(tree):

@@ -23,7 +23,7 @@ import torch
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models import model as model_lib
 from ..models.common import (FSDP, TP, P, current_mesh, mesh_axes,
-                             sanitize_spec, shard_map)
+                             shard_map, split_spec)
 from ..optim import adamw
 
 __all__ = ["cross_entropy", "loss_fn", "make_train_step"]
@@ -58,13 +58,16 @@ def _vocab_parallel_terms(logits, labels):
     the shards."""
     mesh = current_mesh()
     B, S, V = logits.shape
-    dp = sanitize_spec(P(("pod", FSDP)), (B,), mesh)[0]
-    vspec = sanitize_spec(P(dp, None, TP), (B, S, V), mesh)
+    dp = split_spec(P(("pod", FSDP)), (B,), mesh)[0]
+    vspec = split_spec(P(dp, None, TP), (B, S, V), mesh)
     group = mesh.get_group(TP) if vspec[2] else None
-    V_loc = V // (mesh_axes(mesh)[TP] if group is not None else 1)
-    v0 = mesh.get_local_rank(TP) * V_loc if group is not None else 0
+    # a shard of ceil(V / n) columns a rank, the last shorter where n
+    # does not divide V (Whisper's 51 866)
+    V_chunk = -(-V // (mesh_axes(mesh)[TP] if group is not None else 1))
+    v0 = mesh.get_local_rank(TP) * V_chunk if group is not None else 0
 
     def local(lg, lab):
+        V_loc = lg.shape[-1]
         m = lg.amax(dim=-1, keepdim=True).detach()
         if group is not None:
             from torch.distributed import _functional_collectives as funcol

@@ -15,10 +15,14 @@
   expert-sharded, 1x8 F-sharded and batch-1 layouts, within the
   reference's own 2e-4 of its ``moe`` and of the port's; the elastic
   restore from a 4x2 mesh to 2x2, exact, and checkpoints crossing between
-  the packages both ways; and the model path on the 4x2 mesh (parameters,
+  the packages both ways; a reduced Zamba2 Mamba-2 block on the 4x2 mesh
+  through the scan wrapper (serving's route: once a rank, on its heads),
+  equal to the meshless block; and the model path on the 4x2 mesh (parameters,
   AdamW state, batch and cache as DTensors by their specs) for reduced
-  SmolLM, Mixtral, Falcon-Mamba and Whisper: the forward, a prefill and a
-  decode step against the port with no mesh, and a train step (loss,
+  SmolLM, Mixtral, Falcon-Mamba, Whisper and Zamba2, Whisper with 15
+  encoder frames (split unevenly over ``model``) and SmolLM with 3 query
+  heads on 1 KV head (query-parallel attention): the forward, a prefill
+  and a decode step against the port with no mesh, and a train step (loss,
   grads, updated params) against both the port with no mesh and the
   reference's train step, at the train tests' tolerances (each test
   states its own).
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import inspect
 import os
 import subprocess
 import sys
@@ -241,7 +246,17 @@ def test_sanitize_spec_reference_cases():
 # ---------------------------------------------------------------------- #
 #  8 gloo ranks against the reference's 8 host devices
 # ---------------------------------------------------------------------- #
-REF_SCRIPT = textwrap.dedent("""
+def arch_config(get_config, reduce_for_smoke, arch):
+    """The reduced config of ``arch``: a name, or ``name:field=value+...``
+    with integer fields of the reduced config overridden (the scripts
+    below carry this function's source)."""
+    import dataclasses
+    name, _, over = arch.partition(":")
+    return dataclasses.replace(reduce_for_smoke(get_config(name)), **{
+        k: int(v) for k, v in (o.split("=") for o in over.split("+") if o)})
+
+
+REF_SCRIPT = inspect.getsource(arch_config) + textwrap.dedent("""
     import os, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     from functools import partial
@@ -300,7 +315,7 @@ REF_SCRIPT = textwrap.dedent("""
     host = lambda t: jax.tree.map(np.asarray, t)
     models = {}
     for arch in sys.argv[2].split(","):
-        cfg = reduce_for_smoke(get_config(arch))
+        cfg = arch_config(get_config, reduce_for_smoke, arch)
         params = rm.init(cfg, jax.random.PRNGKey(0))
         batch = dict(SyntheticLM(DataConfig(
             vocab_size=cfg.vocab_size, seq_len=int(sys.argv[3]),
@@ -333,7 +348,7 @@ REF_SCRIPT = textwrap.dedent("""
     print("REF_OK")
 """)
 
-GLOO_SCRIPT = textwrap.dedent("""
+GLOO_SCRIPT = inspect.getsource(arch_config) + textwrap.dedent("""
     import os, pickle, sys
     import numpy as np
     import torch
@@ -403,6 +418,43 @@ GLOO_SCRIPT = textwrap.dedent("""
             ref, _ = ckpt.restore(f"{out_dir}/ref_ckpt", {"w": w},
                                   mesh=mesh4, specs=spec)
             res["ref_local"] = ref["w"].to_local().numpy()
+
+        # --- the Mamba-2 block's serving route on the 4x2 mesh ----------
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        from repro_torch.kernels import ops as kops
+        from repro_torch.models import ssm
+        from repro_torch.models.common import sanitize_spec, to_dtensor
+        cfg = dc.replace(reduce_for_smoke(get_config("zamba2-7b")),
+                         param_dtype="float32")
+        p = ssm.Mamba2(cfg, "cpu")
+        p.reset_parameters(torch.Generator().manual_seed(3))
+        dp = ssm.Mamba2(cfg, "meta")
+        specs = ssm.spec_mamba(cfg)
+        for name, t in p.named_parameters():
+            dp._parameters[name] = torch.nn.Parameter(to_dtensor(
+                t, mesh42, sanitize_spec(specs[name], tuple(t.shape),
+                                         mesh42)), requires_grad=False)
+        x = torch.from_numpy(inp["m2_x"])
+        scans = []
+        scan = kops.mamba_scan
+
+        def counted(*a):
+            scans.append(tuple(a[0].shape))
+            return scan(*a)
+        kops.mamba_scan = counted
+        with torch.no_grad():
+            want, want_st = ssm.mamba2_block(p, x, cfg)
+            del scans[:]
+            with implicit_replication(), set_mesh(mesh42):
+                got, st = ssm.mamba2_block(
+                    dp, to_dtensor(x, mesh42, P("data", None, None)), cfg)
+        kops.mamba_scan = scan
+        res["m2_scans"] = np.asarray(scans)
+        res["m2_plain"], res["m2_mesh"] = want.numpy(), \
+            got.full_tensor().numpy()
+        res["m2_state"], res["m2_mesh_state"] = want_st["ssm"].numpy(), \
+            st["ssm"].full_tensor().numpy()
         np.savez(f"{out_dir}/rank{rank}.npz", **res)
 
         # --- the model path on the 4x2 mesh and without one -------------
@@ -462,7 +514,7 @@ GLOO_SCRIPT = textwrap.dedent("""
             t = t.full_tensor() if isinstance(t, DTensor) else t
             return t.detach().float().numpy()
 
-        cfg = reduce_for_smoke(get_config(arch))
+        cfg = arch_config(get_config, reduce_for_smoke, arch)
         batch = {k: torch.from_numpy(np.asarray(v))
                  for k, v in ref["batch"].items()}
         extra = {k: v for k, v in batch.items()
@@ -579,10 +631,16 @@ GLOO_SCRIPT = textwrap.dedent("""
 """)
 
 
-#: the model path on the 4x2 gloo mesh: these reduced models, a batch of
-#: MODEL_BATCH rows (one a ``data`` shard) of MODEL_SEQ tokens
+#: the model path on the 4x2 gloo mesh: these reduced models (an
+#: ``arch:field=value+...`` entry overrides fields of the reduced config:
+#: Whisper with 15 encoder frames, which the 2-way ``model`` axis splits
+#: unevenly, and SmolLM with 3 query heads, which it does not divide:
+#: query-parallel attention), a batch of MODEL_BATCH rows (one a
+#: ``data`` shard) of MODEL_SEQ tokens
 MODEL_ARCHS = ("smollm-360m", "mixtral-8x22b", "falcon-mamba-7b",
-               "whisper-large-v3", "zamba2-7b")
+               "whisper-large-v3", "zamba2-7b",
+               "whisper-large-v3:encoder_seq=15",
+               "smollm-360m:n_heads=3+n_kv_heads=1")
 MODEL_SEQ, MODEL_BATCH = 12, 4
 LR = 1e-3
 
@@ -621,7 +679,11 @@ def _gloo_results(tmp):
                             str(MODEL_BATCH))
     ref = dict(np.load(os.path.join(out, "ref.npz")))
     cfg, p, x = _kimi()
-    arrays = {"g": ref["g"], "x": np.asarray(x)}
+    m2 = r_config("zamba2-7b")
+    arrays = {"g": ref["g"], "x": np.asarray(x),
+              "m2_x": np.random.default_rng(4).standard_normal(
+                  (MODEL_BATCH, MODEL_SEQ, r_reduce(m2).d_model)).astype(
+                      np.float32)}
     flat = {"router": p["router"], "w_gate": p["w_gate"], "w_up": p["w_up"],
             "w_down": p["w_down"]}
     for k, v in p["shared"].items():
@@ -736,6 +798,22 @@ def test_elastic_restore_4x2_to_2x2(gloo):
         assert "elastic_local" not in ranks[rank]
 
 
+def test_mamba2_block_on_mesh_takes_the_scan_route(gloo):
+    """The Mamba-2 block's serving route (``impl="flash"``) on the 4x2
+    mesh: each rank runs the scan wrapper once, on its batch row and its
+    half of the heads (the kernel on the card; its plain version here),
+    and the block equals the meshless one: output within 1e-5 of its
+    max, the final state within 1e-5 of its max."""
+    _, _, ranks = gloo
+    from repro_torch.configs.base import reduce_for_smoke
+    cfg = reduce_for_smoke(get_config("zamba2-7b"))
+    for res in ranks:
+        np.testing.assert_array_equal(
+            res["m2_scans"], [[1, MODEL_SEQ, cfg.d_inner // 2]])
+    _close(ranks[0]["m2_mesh"], ranks[0]["m2_plain"], 1e-5, "output")
+    _close(ranks[0]["m2_mesh_state"], ranks[0]["m2_state"], 1e-5, "state")
+
+
 def test_port_checkpoint_of_a_dtensor_restores_in_reference(gloo):
     out, _, _ = gloo
     got, _ = r_ckpt.restore(os.path.join(out, "port_ckpt"),
@@ -796,7 +874,7 @@ def test_mesh_train_step_matches_meshless_and_reference(gloo, arch):
     with int8 AdamW state, against the meshless int8 step."""
     from repro_torch.configs.base import reduce_for_smoke
     got, ref = _model_results(gloo[0], arch)
-    cfg = reduce_for_smoke(get_config(arch))
+    cfg = arch_config(get_config, reduce_for_smoke, arch)
     rel = dict(rtol=1e-5, atol=0.0)
     for k in ("loss", "ce", "aux", "grad_norm", "lr"):
         np.testing.assert_allclose(got["m." + k], got[k], err_msg=k, **rel)
