@@ -38,6 +38,7 @@ import math
 import torch
 from torch import nn
 
+from .. import obs
 from ..kernels import ops as kops
 from ..kernels.ref import NEG_INF
 from .common import (FSDP, TP, P, apply_rope, assign, check_impl,
@@ -142,23 +143,24 @@ def _queries_split(cfg, S: int, impl: str):
 def _project_qkv(p: Attention, x, cfg, positions, rows=None):
     """q, k, v of x; ``rows`` (:func:`_queries_split`): q's sequence
     split over ``model``."""
-    B, S, _ = x.shape
-    hd = cfg.resolved_head_dim
-    seq = _keys_split(p, S)
-    q = matmul(x, p.wq.to(x.dtype))
-    k = matmul(x, p.wk.to(x.dtype), split_seq=seq is not None)
-    v = matmul(x, p.wv.to(x.dtype), split_seq=seq is not None)
-    if cfg.qkv_bias:
-        q = q + p.bq.to(x.dtype)
-        k = k + p.bk.to(x.dtype)
-        v = v + p.bv.to(x.dtype)
-    q = _heads(q, cfg.n_heads, hd, rows)
-    k = _heads(k, cfg.n_kv_heads, hd, seq)
-    v = _heads(v, cfg.n_kv_heads, hd, seq)
-    if positions is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    with obs.span("attention.project"):
+        B, S, _ = x.shape
+        hd = cfg.resolved_head_dim
+        seq = _keys_split(p, S)
+        q = matmul(x, p.wq.to(x.dtype))
+        k = matmul(x, p.wk.to(x.dtype), split_seq=seq is not None)
+        v = matmul(x, p.wv.to(x.dtype), split_seq=seq is not None)
+        if cfg.qkv_bias:
+            q = q + p.bq.to(x.dtype)
+            k = k + p.bk.to(x.dtype)
+            v = v + p.bv.to(x.dtype)
+        q = _heads(q, cfg.n_heads, hd, rows)
+        k = _heads(k, cfg.n_kv_heads, hd, seq)
+        v = _heads(v, cfg.n_kv_heads, hd, seq)
+        if positions is not None:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        return q, k, v
 
 
 def causal_mask(Sq: int, Sk: int, window=None, offset: int = 0,
@@ -187,19 +189,21 @@ def attention(p: Attention, x, cfg, positions=None, causal: bool = True,
     chunked = causal and S >= 8192 and S % 2048 == 0
     rows = None if chunked else _queries_split(cfg, S, impl)
     q, k, v = _project_qkv(p, x, cfg, positions, rows)
-    if impl == "flash":
-        out = kops.flash_attention(q, k, v, causal=causal,
-                                   window=cfg.sliding_window)
-        out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
-    elif chunked:
-        out = _sdpa_chunked(q, k, v, cfg)
-    else:
-        mask = (causal_mask(S, S, cfg.sliding_window, device=x.device)[0]
-                if causal else None)
-        out = _plain_gqa(q, k.transpose(1, 2), v.transpose(1, 2), mask,
-                         rows)
-    return residual(matmul(_heads_split(out, rows), p.wo.to(x.dtype))), \
-        (k, v)
+    with obs.span("attention.attend"):
+        if impl == "flash":
+            out = kops.flash_attention(q, k, v, causal=causal,
+                                       window=cfg.sliding_window)
+            out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
+        elif chunked:
+            out = _sdpa_chunked(q, k, v, cfg)
+        else:
+            mask = (causal_mask(S, S, cfg.sliding_window,
+                                device=x.device)[0] if causal else None)
+            out = _plain_gqa(q, k.transpose(1, 2), v.transpose(1, 2), mask,
+                             rows)
+    with obs.span("attention.out"):
+        return residual(matmul(_heads_split(out, rows),
+                               p.wo.to(x.dtype))), (k, v)
 
 
 def _heads_split(out, rows):
@@ -389,7 +393,11 @@ def attention_decode(p: Attention, x, cache_k, cache_v, pos: int, cfg):
     x: (B, 1, D); cache_k/v: (B, Hkv, S_max, hd), written in place at the
     slot of ``pos`` (the same position for every sequence). With a sliding
     window and a window-sized cache the slots form a ring. Returns
-    (out (B, 1, D), cache_k, cache_v)."""
+    (out (B, 1, D), cache_k, cache_v).
+
+    Counts ``attention.positions_attended`` (every cache position read,
+    a sequence each) and ``attention.positions_live`` (those the mask
+    keeps, :func:`live_positions`)."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
@@ -397,14 +405,29 @@ def attention_decode(p: Attention, x, cache_k, cache_v, pos: int, cfg):
     ring = cfg.sliding_window is not None and S_max <= cfg.sliding_window
     write_idx = pos % S_max if ring else pos
     slot = (slice(None), slice(None), write_idx)
-    assign(cache_k, slot, k[:, 0].to(cache_k.dtype))
-    assign(cache_v, slot, v[:, 0].to(cache_v.dtype))
-    kj = torch.arange(S_max, device=x.device)
-    if ring:
-        valid = (kj <= pos) | (pos >= S_max)  # warmup, then all slots live
-    else:
-        valid = kj <= pos
-        if cfg.sliding_window is not None:
-            valid = valid & (kj > pos - cfg.sliding_window)
-    out = _plain_gqa(q, cache_k, cache_v, valid)
-    return residual(matmul(out, p.wo.to(x.dtype))), cache_k, cache_v
+    with obs.span("attention.cache_write"):
+        assign(cache_k, slot, k[:, 0].to(cache_k.dtype))
+        assign(cache_v, slot, v[:, 0].to(cache_v.dtype))
+    if obs.on:
+        obs.count("attention.positions_attended", B * S_max)
+        obs.count("attention.positions_live",
+                  B * live_positions(pos, S_max, cfg.sliding_window))
+    with obs.span("attention.attend"):
+        kj = torch.arange(S_max, device=x.device)
+        if ring:
+            # warmup, then all slots live
+            valid = (kj <= pos) | (pos >= S_max)
+        else:
+            valid = kj <= pos
+            if cfg.sliding_window is not None:
+                valid = valid & (kj > pos - cfg.sliding_window)
+        out = _plain_gqa(q, cache_k, cache_v, valid)
+    with obs.span("attention.out"):
+        return residual(matmul(out, p.wo.to(x.dtype))), cache_k, cache_v
+
+
+def live_positions(pos: int, S_max: int, window=None) -> int:
+    """How many of a decode step's ``S_max`` cache slots its mask keeps
+    at position ``pos``: those up to ``pos``, within the window when set
+    (a window-sized ring: every slot once full)."""
+    return min(pos + 1, S_max, window if window is not None else S_max)

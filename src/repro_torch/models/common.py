@@ -34,6 +34,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import obs
+
 TP = "model"   # tensor-parallel mesh axis
 FSDP = "data"  # fully-sharded-data-parallel mesh axis
 
@@ -671,10 +673,11 @@ def embed_init(generator, shape, dtype, device):
 #  Norms (computed in fp32, cast back)
 # ---------------------------------------------------------------------- #
 def rms_norm(x, weight, eps):
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
-    return (out * weight.float()).to(x.dtype)
+    with obs.span("norm"):
+        xf = x.float()
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps)
+        return (out * weight.float()).to(x.dtype)
 
 
 def layer_norm(x, weight, bias, eps):
@@ -715,14 +718,15 @@ def rope_freqs(head_dim: int, theta: float, device=None):
 
 def apply_rope(x, positions, theta: float):
     """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                   # (hd/2,)
-    angles = positions[..., :, None].float() * freqs         # (..., S, hd/2)
-    cos = torch.cos(angles)[..., :, None, :]                 # (..., S, 1, hd/2)
-    sin = torch.sin(angles)[..., :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    with obs.span("attention.rope"):
+        hd = x.shape[-1]
+        freqs = rope_freqs(hd, theta, x.device)            # (hd/2,)
+        angles = positions[..., :, None].float() * freqs  # (..., S, hd/2)
+        cos = torch.cos(angles)[..., :, None, :]          # (..., S, 1, hd/2)
+        sin = torch.sin(angles)[..., :, None, :]
+        x1, x2 = x.float().chunk(2, dim=-1)
+        out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+        return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------- #

@@ -5,6 +5,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import obs
 from .common import (FSDP, TP, P, dense_init, dtype_of, matmul, param,
                      residual)
 
@@ -45,10 +46,11 @@ def spec_mlp(gelu: bool = False):
 
 
 def mlp(p: MLP, x):
-    if hasattr(p, "w_in"):
-        h = F.gelu(matmul(x, p.w_in.to(x.dtype)),
-                   approximate="tanh")                 # jax's default
-        return residual(matmul(h, p.w_out.to(x.dtype)))
-    g = matmul(x, p.w_gate.to(x.dtype))
-    u = matmul(x, p.w_up.to(x.dtype))
-    return residual(matmul(F.silu(g) * u, p.w_down.to(x.dtype)))
+    with obs.span("mlp"):
+        if hasattr(p, "w_in"):
+            h = F.gelu(matmul(x, p.w_in.to(x.dtype)),
+                       approximate="tanh")                 # jax's default
+            return residual(matmul(h, p.w_out.to(x.dtype)))
+        g = matmul(x, p.w_gate.to(x.dtype))
+        u = matmul(x, p.w_up.to(x.dtype))
+        return residual(matmul(F.silu(g) * u, p.w_down.to(x.dtype)))

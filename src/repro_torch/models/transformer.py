@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .. import obs
 from . import attention as attn_mod
 from . import moe as moe_mod
 from .common import (FSDP, TP, Embeddings, P, assign, current_mesh,
@@ -200,17 +201,25 @@ def decode_step(params: TransformerLM, cache, tokens, pos: int, cfg):
     """tokens: (B, 1); pos: the position being written. Returns (logits,
     cache); the cache tensors are updated in place (a copy of a multi-GB
     cache per token would dominate decode)."""
-    x = embed_tokens(params.embed, tokens, cfg)
+    with obs.span("embed"):
+        x = embed_tokens(params.embed, tokens, cfg)
     for name, stack in params.stacks():
         ck, cv = cache[name]["k"], cache[name]["v"]
         for i, lp in enumerate(stack):
-            h, _, _ = attn_mod.attention_decode(
-                lp.attn, rms_norm(x, lp.attn_norm, cfg.norm_eps), ck[i],
-                cv[i], pos, cfg)
-            x = x + h
-            x = x + _ffn(lp, x, cfg)[0]
+            with obs.span("layer"):
+                h, _, _ = attn_mod.attention_decode(
+                    lp.attn, rms_norm(x, lp.attn_norm, cfg.norm_eps), ck[i],
+                    cv[i], pos, cfg)
+                x = x + h
+                x = x + _ffn(lp, x, cfg)[0]
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return unembed(params.embed, x, cfg).float(), cache
+    return _logits(params, x, cfg), cache
+
+
+def _logits(params: TransformerLM, x, cfg):
+    """The fp32 logits of the normed final states."""
+    with obs.span("unembed"):
+        return unembed(params.embed, x, cfg).float()
 
 
 def cache_write(kv, cache_side):
@@ -245,15 +254,18 @@ def prefill(params: TransformerLM, tokens, cfg, max_seq: int,
     """Run the prompt (VLM: after ``vision_embeds``); return (logits,
     cache) with kv written at [0, S). Under a mesh the cache is laid out
     as :func:`cache_specs` says, its batch over (pod, data)."""
-    x = _embed(params, tokens, cfg, vision_embeds)
+    with obs.span("embed"):
+        x = _embed(params, tokens, cfg, vision_embeds)
     cache = mesh_zeros(lambda dev: init_cache(cfg, x.shape[0], max_seq,
                                               cache_dtype, dev),
                        podify(cache_specs(cfg)), x.device)
     for name, stack in params.stacks():
         ck, cv = cache[name]["k"], cache[name]["v"]
         for i, lp in enumerate(stack):
-            x, _, (k, v) = _layer_fwd(x, lp, cfg, impl)
-            cache_write(k.transpose(1, 2), ck[i])
-            cache_write(v.transpose(1, 2), cv[i])
+            with obs.span("layer"):
+                x, _, (k, v) = _layer_fwd(x, lp, cfg, impl)
+                with obs.span("attention.cache_write"):
+                    cache_write(k.transpose(1, 2), ck[i])
+                    cache_write(v.transpose(1, 2), cv[i])
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return unembed(params.embed, x, cfg).float(), cache
+    return _logits(params, x, cfg), cache

@@ -5,19 +5,23 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models import model as model_lib
 
 
 def make_serve_step(cfg, device=DEFAULT_DEVICE):
     """decode_step(params, cache, tokens (B,1), pos) → (logits, cache):
-    one new token against the cache."""
+    one new token against the cache, as one ``serve.decode_step`` span
+    (:mod:`repro_torch.obs`) that ends when the step's work is
+    dispatched."""
     dev = resolve_device(device)
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
-        return model_lib.decode_step(cfg, params, cache, tokens, pos,
-                                     device=dev)
+        with obs.span("serve.decode_step"):
+            return model_lib.decode_step(cfg, params, cache, tokens, pos,
+                                         device=dev)
 
     return serve_step
 
@@ -26,13 +30,14 @@ def make_prefill_step(cfg, max_seq: int, device=DEFAULT_DEVICE,
                       impl: str = "flash"):
     """prefill(params, tokens, extra) → (logits, cache), through the
     kernels (``impl="flash"``) or the plain route (``"xla"``, what the dry
-    run traces)."""
+    run traces), as one ``serve.prefill`` span."""
     dev = resolve_device(device)
 
     @torch.no_grad()
     def prefill_step(params, tokens, extra=None):
-        return model_lib.prefill(cfg, params, tokens, max_seq, extra,
-                                 device=dev, impl=impl)
+        with obs.span("serve.prefill"):
+            return model_lib.prefill(cfg, params, tokens, max_seq, extra,
+                                     device=dev, impl=impl)
 
     return prefill_step
 
