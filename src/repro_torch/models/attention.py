@@ -387,7 +387,7 @@ def _key_parallel_gqa(q, k, v, valid=None):
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq * hd)
 
 
-def attention_decode(p: Attention, x, cache_k, cache_v, pos: int, cfg):
+def attention_decode(p: Attention, x, cache_k, cache_v, pos, cfg):
     """Single-token decode with a KV cache.
 
     x: (B, 1, D); cache_k/v: (B, Hkv, S_max, hd), written in place at the
@@ -395,23 +395,38 @@ def attention_decode(p: Attention, x, cache_k, cache_v, pos: int, cfg):
     window and a window-sized cache the slots form a ring. Returns
     (out (B, 1, D), cache_k, cache_v).
 
-    Counts ``attention.positions_attended`` (every cache position read,
-    a sequence each) and ``attention.positions_live`` (those the mask
-    keeps, :func:`live_positions`)."""
+    ``pos`` is a Python int, or a 0-d int64 tensor on x's device: then
+    the positions, the cache slot (``index_copy_``) and the mask read the
+    tensor, so that a CUDA graph captured around the step
+    (:func:`repro_torch.train.serve.make_serve_step`) takes each replay's
+    position from it. The products, dtypes and mask are the int route's.
+
+    With an int ``pos`` this counts ``attention.positions_attended`` and
+    ``attention.positions_live`` (:func:`count_positions`); with a tensor
+    it counts nothing (reading it would wait for the device), and the
+    caller counts."""
     B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    on_device = isinstance(pos, torch.Tensor)
+    if on_device:
+        positions = pos.view(1, 1).expand(B, 1)
+    else:
+        positions = torch.full((B, 1), pos, dtype=torch.int64,
+                               device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
     S_max = cache_k.shape[2]
     ring = cfg.sliding_window is not None and S_max <= cfg.sliding_window
     write_idx = pos % S_max if ring else pos
-    slot = (slice(None), slice(None), write_idx)
     with obs.span("attention.cache_write"):
-        assign(cache_k, slot, k[:, 0].to(cache_k.dtype))
-        assign(cache_v, slot, v[:, 0].to(cache_v.dtype))
-    if obs.on:
-        obs.count("attention.positions_attended", B * S_max)
-        obs.count("attention.positions_live",
-                  B * live_positions(pos, S_max, cfg.sliding_window))
+        if on_device:
+            idx = write_idx.view(1)
+            cache_k.index_copy_(2, idx, k.transpose(1, 2).to(cache_k.dtype))
+            cache_v.index_copy_(2, idx, v.transpose(1, 2).to(cache_v.dtype))
+        else:
+            slot = (slice(None), slice(None), write_idx)
+            assign(cache_k, slot, k[:, 0].to(cache_k.dtype))
+            assign(cache_v, slot, v[:, 0].to(cache_v.dtype))
+    if obs.on and not on_device:
+        count_positions(B, S_max, pos, cfg.sliding_window)
     with obs.span("attention.attend"):
         kj = torch.arange(S_max, device=x.device)
         if ring:
@@ -431,3 +446,14 @@ def live_positions(pos: int, S_max: int, window=None) -> int:
     at position ``pos``: those up to ``pos``, within the window when set
     (a window-sized ring: every slot once full)."""
     return min(pos + 1, S_max, window if window is not None else S_max)
+
+
+def count_positions(B: int, S_max: int, pos: int, window=None,
+                    layers: int = 1) -> None:
+    """Count ``layers`` decode attentions of ``B`` sequences over ``S_max``
+    cache slots at position ``pos``: ``attention.positions_attended``
+    (every slot read, a sequence each) and ``attention.positions_live``
+    (those the mask keeps, :func:`live_positions`)."""
+    obs.count("attention.positions_attended", layers * B * S_max)
+    obs.count("attention.positions_live",
+              layers * B * live_positions(pos, S_max, window))

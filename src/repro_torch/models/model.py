@@ -4,6 +4,7 @@
   forward(cfg, params, tokens, extra, device, impl)    → (logits, aux_loss)
   prefill(cfg, params, tokens, max_seq, extra, …)      → (logits, cache)
   decode_step(cfg, params, cache, tokens, pos, device) → (logits, cache)
+  decode_graphable(cfg)                                → bool
   init_cache(cfg, batch, max_seq, dtype, device)       → cache
   extra_inputs(cfg, batch, seq, mode, generator, …)    → modality stubs
   text_len(cfg, seq)
@@ -161,9 +162,27 @@ def prefill(cfg, params, tokens, max_seq: int, extra: Optional[dict] = None,
                        **_extra(cfg, extra, device))
 
 
+def decode_graphable(cfg) -> bool:
+    """Whether ``cfg``'s family declares its decode step capturable in a
+    CUDA graph: it takes its position as a device tensor and makes no
+    host sync (the family module's ``GRAPH_DECODE_FAMILIES``)."""
+    return cfg.family in getattr(_family_module(cfg),
+                                 "GRAPH_DECODE_FAMILIES", ())
+
+
 @torch.no_grad()
-def decode_step(cfg, params, cache, tokens, pos: int,
-                device=DEFAULT_DEVICE):
+def decode_step(cfg, params, cache, tokens, pos, device=DEFAULT_DEVICE):
+    """``pos``: an int, or for a family that :func:`decode_graphable`
+    names a 0-d int64 tensor on ``device`` (other families take its
+    value)."""
     mod = _family_module(cfg)
-    return mod.decode_step(params, cache, _on(params, tokens, device),
-                           int(pos), cfg)
+    tokens = _on(params, tokens, device)
+    if isinstance(pos, torch.Tensor) and decode_graphable(cfg):
+        if pos.dim() or pos.dtype != torch.int64 or \
+                pos.device != tokens.device:
+            raise ValueError(f"a tensor pos must be 0-d int64 on "
+                             f"{tokens.device}, got {tuple(pos.shape)} "
+                             f"{pos.dtype} on {pos.device}")
+    else:
+        pos = int(pos)
+    return mod.decode_step(params, cache, tokens, pos, cfg)

@@ -197,10 +197,18 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
     return cache
 
 
-def decode_step(params: TransformerLM, cache, tokens, pos: int, cfg):
-    """tokens: (B, 1); pos: the position being written. Returns (logits,
-    cache); the cache tensors are updated in place (a copy of a multi-GB
-    cache per token would dominate decode)."""
+#: the families of this module whose decode step can be captured in a
+#: CUDA graph (:func:`repro_torch.train.serve.make_serve_step`): with a
+#: tensor ``pos`` it makes no host sync. The MoE and VLM steps are not
+#: yet held to their eager steps under a graph on a card, so stay eager.
+GRAPH_DECODE_FAMILIES = ("dense",)
+
+
+def decode_step(params: TransformerLM, cache, tokens, pos, cfg):
+    """tokens: (B, 1); pos: the position being written, an int or a 0-d
+    int64 tensor on the tokens' device (:func:`attention.attention_decode`).
+    Returns (logits, cache); the cache tensors are updated in place (a
+    copy of a multi-GB cache per token would dominate decode)."""
     with obs.span("embed"):
         x = embed_tokens(params.embed, tokens, cfg)
     for name, stack in params.stacks():

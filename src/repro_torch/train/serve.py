@@ -8,22 +8,132 @@ import torch
 from .. import obs
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models import model as model_lib
+from ..models.attention import count_positions
+from ..models.common import current_mesh
+
+#: eager steps run on the capture stream before a decode step is captured
+#: (cuBLAS handles and workspaces, the allocator's blocks)
+GRAPH_WARM_UP = 3
 
 
 def make_serve_step(cfg, device=DEFAULT_DEVICE):
     """decode_step(params, cache, tokens (B,1), pos) → (logits, cache):
     one new token against the cache, as one ``serve.decode_step`` span
     (:mod:`repro_torch.obs`) that ends when the step's work is
-    dispatched."""
+    dispatched.
+
+    On a CUDA device, with no mesh, plain cache tensors, no stream capture
+    under way, and a family whose decode step can be captured
+    (``model.decode_graphable``), the step is a CUDA graph: captured on
+    the first call for each token shape and cache layout (after
+    ``GRAPH_WARM_UP`` eager steps, which rewrite the same cache slot with
+    the same values), then replayed. The graph binds ``params``, the cache
+    tensors it was captured on (kept alive), a (B, 1) int64 token buffer
+    and a 0-d int64 position buffer, which each call fills before the
+    replay. A call with another cache copies it into the bound one, device
+    to device, and leaves it unwritten; the returned cache is always the
+    bound one, so pass back what the step returned. Another ``params``
+    captures anew. The logits are a fresh tensor each call. Inner spans
+    run at capture only; ``attention.positions_*`` are counted here for
+    each call, and each call counts one of ``serve.graph_captures``,
+    ``serve.graph_cache_copies`` (it then replays) or
+    ``serve.graph_replays``. Everywhere else the step is eager; a capture
+    that fails raises."""
     dev = resolve_device(device)
+    graphable = dev.type == "cuda" and model_lib.decode_graphable(cfg)
+    graphs: dict = {}
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
         with obs.span("serve.decode_step"):
-            return model_lib.decode_step(cfg, params, cache, tokens, pos,
-                                         device=dev)
+            if not (graphable and _plain_cache(cache)):
+                return model_lib.decode_step(cfg, params, cache, tokens, pos,
+                                             device=dev)
+            key = (tuple(tokens.shape), _layout(cache))
+            g = graphs.get(key)
+            if g is None or g.params is not params:
+                g = graphs[key] = _DecodeGraph(cfg, params, cache, tokens,
+                                               pos, dev)
+                obs.count("serve.graph_captures", 1)
+            elif g.bound(cache):
+                obs.count("serve.graph_replays", 1)
+            else:
+                g.copy_in(cache)
+                obs.count("serve.graph_cache_copies", 1)
+            if obs.on:
+                g.count(int(pos))
+            return g(tokens, pos), g.cache
 
     return serve_step
+
+
+def _leaves(cache) -> list:
+    """The cache's tensors ({stack: {"k": …, "v": …}}), in a fixed order."""
+    return [cache[n][s] for n in sorted(cache) for s in sorted(cache[n])]
+
+
+def _layout(cache) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in _leaves(cache))
+
+
+def _plain_cache(cache) -> bool:
+    """No mesh, no capture under way (the caller's own graph takes the
+    eager step), and the cache's tensors plain ones (not DTensors)."""
+    return (current_mesh() is None
+            and not torch.cuda.is_current_stream_capturing()
+            and all(type(t) is torch.Tensor for t in _leaves(cache)))
+
+
+class _DecodeGraph:
+    """One captured decode step: the graph, what it binds (``params``,
+    ``cache``, the token and position buffers) and its logits."""
+
+    def __init__(self, cfg, params, cache, tokens, pos, dev):
+        self.cfg, self.params, self.cache = cfg, params, cache
+        self.leaves = _leaves(cache)
+        self.tokens = torch.empty(tuple(tokens.shape), dtype=torch.int64,
+                                  device=dev)
+        self.pos = torch.zeros((), dtype=torch.int64, device=dev)
+        self._load(tokens, pos)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            for _ in range(GRAPH_WARM_UP):
+                model_lib.decode_step(cfg, params, cache, self.tokens,
+                                      self.pos, device=dev)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.logits, _ = model_lib.decode_step(
+                cfg, params, cache, self.tokens, self.pos, device=dev)
+
+    def _load(self, tokens, pos) -> None:
+        self.tokens.copy_(torch.as_tensor(tokens))
+        if isinstance(pos, torch.Tensor):
+            self.pos.copy_(pos)
+        else:
+            self.pos.fill_(pos)
+
+    def bound(self, cache) -> bool:
+        """Whether ``cache``'s tensors are the bound ones."""
+        return all(a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                   and a.dtype == b.dtype and a.stride() == b.stride()
+                   for a, b in zip(_leaves(cache), self.leaves))
+
+    def copy_in(self, cache) -> None:
+        for dst, src in zip(self.leaves, _leaves(cache)):
+            dst.copy_(src)
+
+    def count(self, pos: int) -> None:
+        """The decode attentions' position counters of one step."""
+        for stack in self.cache.values():
+            n, B, _, S_max, _ = stack["k"].shape
+            count_positions(B, S_max, pos, self.cfg.sliding_window, n)
+
+    def __call__(self, tokens, pos):
+        self._load(tokens, pos)
+        self.graph.replay()
+        return self.logits.clone()
 
 
 def make_prefill_step(cfg, max_seq: int, device=DEFAULT_DEVICE,
