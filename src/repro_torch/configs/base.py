@@ -15,7 +15,12 @@ reference's does."""
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
+
+#: the fields the port adds for Zamba2-7B at its published widths
+PORT_FIELDS = ("hidden_act", "mamba_ngroups", "shared_block",
+               "num_mem_blocks", "adapter_rank", "hybrid_layer_ids")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +77,22 @@ class ModelConfig:
     # microbatch gradient-accumulator dtype (bf16 halves the largest
     # training buffer at 1T scale; error ~2^-8 per add, n_microbatch small)
     grad_accum_dtype: str = "float32"
+    # The port's own settings (Zamba2-7B at its published widths): class
+    # attributes, not fields, so that a reference config carries over
+    # field for field; :class:`PortConfig` makes them fields. At these
+    # values every family computes what it computed without them.
+    hidden_act = "silu"                      # gated MLP: silu | gelu (erf)
+    mamba_ngroups = 1                        # Mamba-2 B/C groups (Zamba2: 2)
+    # the shared block's form: "residual" (the reference's: x + attn,
+    # x + mlp, over the hidden state, after every period) or "zamba2"
+    # (Zamba2's: over concat(h, embedding), no residual, a LoRA and a
+    # linear each application, added to the input of the Mamba-2 mixer of
+    # layer ``hybrid_layer_ids[a]``; scores scaled by (hd/2)^-1/2). The
+    # three after it are for the "zamba2" form alone
+    shared_block = "residual"
+    num_mem_blocks = 1                       # shared blocks, taken in turn
+    adapter_rank = 0                         # LoRA rank on the MLP's gate_up
+    hybrid_layer_ids = ()                    # the layers applications feed
 
     @property
     def resolved_head_dim(self) -> int:
@@ -86,6 +107,18 @@ class ModelConfig:
     @property
     def d_inner(self) -> int:
         return self.ssm_expand * self.d_model
+
+    @property
+    def query_scale(self) -> float:
+        """q's factor before attention's ``1/sqrt(hd)``: sqrt(2) in
+        Zamba2's shared block, whose scores are scaled by ``(hd/2)^-1/2``;
+        else 1 (nothing multiplied)."""
+        return math.sqrt(2.0) if self.shared_block == "zamba2" else 1.0
+
+    def port_fields_set(self) -> list:
+        """The names of :data:`PORT_FIELDS` set away from their defaults."""
+        return [n for n in PORT_FIELDS
+                if getattr(self, n) != getattr(ModelConfig, n)]
 
     # ------------------------------------------------------------------ #
     def param_count(self) -> int:
@@ -113,6 +146,8 @@ class ModelConfig:
             blk = D * 2 * Di + Di * self.ssm_conv + Di * (dt_rank + 2 * N) \
                 + dt_rank * Di + Di * N + Di + Di * D + D
             n += self.n_layers * blk
+        elif self.family == "hybrid" and self.port_fields_set():
+            n += self._zamba2_params()
         elif self.family == "hybrid":
             Di, N = self.d_inner, self.ssm_state
             H = max(Di // self.ssm_head_dim, 1)
@@ -128,6 +163,35 @@ class ModelConfig:
         n += D  # final norm
         return n
 
+    def _zamba2_params(self) -> int:
+        """Every parameter of a hybrid with the port's fields set, as
+        :mod:`repro_torch.models.hybrid` lays them out: each layer's norm
+        and Mamba-2 mixer (in_proj to z, x, B, C of each group and dt;
+        the conv over x, B, C with its bias; A_log, dt_bias, D a head;
+        the gated norm; out_proj), then with the "zamba2" form each
+        shared block (attention over the 2D-wide concat with its norm, the
+        MLP's norm, the gated MLP) and each application's LoRA and
+        linear, else the one residual block after every period."""
+        D, F, hd = self.d_model, self.d_ff, self.resolved_head_dim
+        Di, N, K = self.d_inner, self.ssm_state, self.ssm_conv
+        H = Di // self.ssm_head_dim
+        conv = Di + 2 * self.mamba_ngroups * N
+        blk = D * (Di + conv + H) + conv * (K + 1) + 3 * H + Di + Di * D \
+            + D
+        n = self.n_layers * blk
+        if self.shared_block == "zamba2":
+            Din = 2 * D
+            att = Din * (self.n_heads + 2 * self.n_kv_heads) * hd \
+                + self.n_heads * hd * D
+            n += self.num_mem_blocks * (att + 3 * D * F + Din + D)
+            n += len(self.hybrid_layer_ids) * (
+                D * self.adapter_rank + self.adapter_rank * 2 * F + D * D)
+        elif self.hybrid_attn_period:
+            att = D * (self.n_heads + 2 * self.n_kv_heads) * hd \
+                + self.n_heads * hd * D
+            n += att + 3 * D * F + 2 * D
+        return n
+
     def active_param_count(self) -> int:
         """Per-token active parameters (MoE: top-k + shared experts only)."""
         if self.family != "moe":
@@ -137,6 +201,25 @@ class ModelConfig:
         active_moe = (self.top_k + self.n_shared_experts) * 3 * self.d_model * F
         n_moe_layers = self.n_layers - self.first_dense_layers
         return self.param_count() - n_moe_layers * (full_moe - active_moe)
+
+
+@dataclasses.dataclass(frozen=True)
+class PortConfig(ModelConfig):
+    """A :class:`ModelConfig` whose port settings (:data:`PORT_FIELDS`,
+    Zamba2-7B's form) are fields: set them here, or with
+    :func:`with_port_fields` on a config of the registry."""
+    hidden_act: str = "silu"
+    mamba_ngroups: int = 1
+    shared_block: str = "residual"
+    num_mem_blocks: int = 1
+    adapter_rank: int = 0
+    hybrid_layer_ids: tuple = ()
+
+
+def with_port_fields(cfg: ModelConfig, **fields) -> PortConfig:
+    """``cfg`` as a :class:`PortConfig`, with ``fields`` set."""
+    keep = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    return PortConfig(**{**keep, **fields})
 
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:

@@ -3,10 +3,11 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention, pl.pallas_call at :116, body _kernel at :33) for bf16
-// inputs whose head dim is a multiple of 16 up to 128, on 16-byte-aligned
+// inputs whose head dim is a multiple of 16 up to 256, on 16-byte-aligned
 // tensors. Everything else (fp32, other head dims, unaligned tensors) takes
-// the SIMT kernel in flash_attention.cu; the route is chosen in Python
-// (repro_torch/kernels/flash_attention.py::route) before the launch.
+// the SIMT kernel in flash_attention.cu, which stops at head dim 128; the
+// route is chosen in Python (repro_torch/kernels/flash_attention.py::route)
+// before the launch.
 //
 // It computes what flash_attention.cu computes: for batch b, query head h
 // and query row i,
@@ -40,8 +41,8 @@
 //   (hd, H, S, B) with its real strides, so nothing is transposed or
 //   padded in memory; a box is one head x 64 head-dim columns x 128 rows,
 //   128-byte swizzled, and zero fill past S and past hd covers ragged
-//   sequences and head dims 16..112 (the smem tile is 64 or 128 columns).
-//   Q is loaded once; K and V tiles go through a 2-stage ring with
+//   sequences and head dims 16..240 (the smem tile is 64, 128 or 256
+//   columns). Q is loaded once; K and V tiles go through a 2-stage ring with
 //   mbarrier full (one for K, one for V, so S = Q.K^T starts before V
 //   lands) and empty pairs.
 // * S = Q.K^T is m64n128k16 wgmma with Q and K from shared memory
@@ -54,6 +55,12 @@
 // * Key tiles wholly outside a warpgroup's causal frontier or window are
 //   skipped; only diagonal and window-edge tiles (and the ragged last
 //   tile) evaluate the mask.
+// * Head dims 144..256 (Zamba2-7B's shared attention: 224) pad to 256
+//   columns. Q (64 KB), two stages of K and V and 128 query rows fit in
+//   the 227 KB of shared memory only with 64-key tiles, so that variant
+//   takes 64 keys a tile (S = Q.K^T as m64n64k16, O += P.V as one
+//   m64n256k16, 128 accumulator registers a thread); the 64- and
+//   128-column variants keep 128-key tiles.
 //
 // Tensor maps are encoded on the host with cuTensorMapEncodeTiled, fetched
 // from libcuda through the runtime (cudaGetDriverEntryPoint), so the
@@ -67,18 +74,23 @@
 namespace {
 
 constexpr int kBQ = 128;            // query rows per block
-constexpr int kBK = 128;            // keys per tile
 constexpr int kStages = 2;          // K/V ring depth
 constexpr int kConsumers = 2;       // consumer warpgroups, 64 rows each
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kRowBytes = 128;      // one 64-column bf16 chunk row
 constexpr float kNegInf = -1073741824.0f;  // -2^30, the reference's NEG_INF
 
+// Keys per K/V tile of the HDP-column variant: 128, or 64 at 256 columns
+// (what shared memory holds beside Q and two stages).
+template <int HDP>
+constexpr int key_tile() { return HDP > 128 ? 64 : 128; }
+
 // Shared-memory layout in bytes from a 1024-byte-aligned base (the
 // 128-byte swizzle repeats every 8 rows = 1024 bytes). A tile of R rows is
 // HDP / 64 chunks of R x 128 bytes, chunk after chunk.
 template <int HDP>
 struct Smem {
+  static constexpr int kBK = key_tile<HDP>();
   static constexpr int kChunks = HDP / 64;
   static constexpr int kQBytes = kChunks * kBQ * kRowBytes;
   static constexpr int kKVBytes = kChunks * kBK * kRowBytes;  // K or V tile
@@ -205,6 +217,90 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 64, fp32) += A (64 x 16, bf16, shared) . B (16 x 64, bf16, shared)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 256, fp32) += A (64 x 16, bf16, registers)
+//   . B (16 x 256, bf16, shared, N-major)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 128, fp32) += A (64 x 16, bf16, registers)
 //   . B (16 x 128, bf16, shared, N-major)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
@@ -271,8 +367,17 @@ template <int HDP>
 __device__ __forceinline__ void wgmma_pv(float (&o)[HDP / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
-  if constexpr (HDP == 128) wgmma_rs_n128(o, a, db);
+  if constexpr (HDP == 256) wgmma_rs_n256(o, a, db);
+  else if constexpr (HDP == 128) wgmma_rs_n128(o, a, db);
   else wgmma_rs_n64(o, a, db);
+}
+
+// S (64 x BK) = Q . K^T's k-step from shared memory.
+template <int BK>
+__device__ __forceinline__ void wgmma_qk(float (&s)[BK / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (BK == 128) wgmma_ss_n128(s, da, db, scale_d);
+  else wgmma_ss_n64(s, da, db, scale_d);
 }
 
 // Is key `key` live for the query at position `pos`?
@@ -283,18 +388,18 @@ __device__ __forceinline__ bool key_live(int key, int pos, int Sk,
 }
 
 // One key tile's online-softmax step on the score fragment s (scaled to
-// log2 units in place, then overwritten by p). Rows: r0 and r0 + 8 of the
-// tile, at positions pos0 and pos0 + 8; keys k0 + column. Returns each
-// row's rescale factor of the old accumulator.
-template <bool kMask>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
+// log2 units in place, then overwritten by p; NS = keys / 2 registers).
+// Rows: r0 and r0 + 8 of the tile, at positions pos0 and pos0 + 8; keys
+// k0 + column. Returns each row's rescale factor of the old accumulator.
+template <bool kMask, int NS>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
                                              float scale_log2, int k0,
                                              int col0, int pos0, int Sk,
                                              int causal, int window) {
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     float x = s[i] * scale_log2;
     if (kMask) {
       const int key = k0 + 8 * (i / 4) + col0 + (i & 1);
@@ -313,7 +418,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
   }
   float sum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     const int r = (i % 4) / 2;
     float p = exp2f(s[i] - m[r]);
     if (kMask) {
@@ -338,6 +443,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                             int Hq, int Hkv, int hd, int causal, int window,
                             float scale_log2) {
   using L = Smem<HDP>;
+  constexpr int kBK = L::kBK;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base + L::kQ;
@@ -423,13 +529,13 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                         || (window > 0 && k0 + kBK - 1 <= wpos_lo - window);
       mbar_wait(full_k(s), ph);
       if (!dead) {
-        float sc[64];
+        float sc[kBK / 2];
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < HDP / 16; ++kk) {
           const uint32_t chunk = (kk / 4) * kRowBytes;
           const uint32_t kofs = (kk % 4) * 32;
-          wgmma_ss_n128(
+          wgmma_qk<kBK>(
               sc,
               gmma_desc(sQ + chunk * kBQ + wg * 64 * kRowBytes + kofs, 16,
                         1024),
@@ -445,11 +551,11 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                           && (window <= 0 || k0 > wpos_hi - window);
         float alpha[2];
         if (full)
-          softmax_tile<false>(sc, m, l, alpha, scale_log2, k0, col0,
-                              r_a + off, Sk, causal, window);
+          softmax_tile<false, kBK / 2>(sc, m, l, alpha, scale_log2, k0,
+                                       col0, r_a + off, Sk, causal, window);
         else
-          softmax_tile<true>(sc, m, l, alpha, scale_log2, k0, col0,
-                             r_a + off, Sk, causal, window);
+          softmax_tile<true, kBK / 2>(sc, m, l, alpha, scale_log2, k0,
+                                      col0, r_a + off, Sk, causal, window);
 #pragma unroll
         for (int j = 0; j < HDP / 2; ++j) o[j] *= alpha[(j % 4) / 2];
         uint32_t pa[kBK / 16][4];
@@ -565,8 +671,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
            float scale, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   int err = make_map(&qm, q, B, Sq, Hq, hd, kBQ);
-  if (err == 0) err = make_map(&km, k, B, Sk, Hkv, hd, kBK);
-  if (err == 0) err = make_map(&vm, v, B, Sk, Hkv, hd, kBK);
+  if (err == 0) err = make_map(&km, k, B, Sk, Hkv, hd, key_tile<HDP>());
+  if (err == 0) err = make_map(&vm, v, B, Sk, Hkv, hd, key_tile<HDP>());
   if (err != 0) return err;
   const size_t smem = Smem<HDP>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
@@ -585,7 +691,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 extern "C" {
 
 // bf16 q, out (B, Sq, Hq, hd) and k, v (B, Sk, Hkv, hd), contiguous and
-// 16-byte aligned; hd a multiple of 16 in [16, 128]. window <= 0 means no
+// 16-byte aligned; hd a multiple of 16 in [16, 256]. window <= 0 means no
 // window; scale is the score scale (1/sqrt(hd)). Launches on `stream` and
 // returns cudaGetLastError() (or the tensor-map encoder's refusal).
 int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
@@ -597,7 +703,7 @@ int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
                     | reinterpret_cast<unsigned long long>(v)
                     | reinterpret_cast<unsigned long long>(out);
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0
-      || hd < 16 || hd > 128 || hd % 16 != 0 || (bits & 15ull) != 0
+      || hd < 16 || hd > 256 || hd % 16 != 0 || (bits & 15ull) != 0
       || (Sq + kBQ - 1) / kBQ > 65535
       || static_cast<long long>(B) * Hq > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -606,7 +712,10 @@ int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
   if (hd <= 64)
     return launch<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, hd, causal, window,
                       scale, s);
-  return launch<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, hd, causal, window,
+  if (hd <= 128)
+    return launch<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, hd, causal, window,
+                       scale, s);
+  return launch<256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, hd, causal, window,
                      scale, s);
 }
 

@@ -5,10 +5,12 @@ Two kernels are the Hopper counterparts of the Pallas TPU kernel
 :func:`route` chooses before each launch:
 
 * ``"wgmma"`` (``csrc/flash_attention_sm90.cu``): bf16 on the tensor
-  cores, fed by TMA, for head dims that are a multiple of 16 up to 128 on
-  16-byte-aligned tensors;
+  cores, fed by TMA, for head dims that are a multiple of 16 up to
+  :data:`MAX_HEAD_DIM` (256) on 16-byte-aligned tensors;
 * ``"simt"`` (``csrc/flash_attention.cu``): everything else the wrapper
-  takes (fp32, other head dims, unaligned tensors), on the fp32 pipes.
+  takes (fp32, other head dims, unaligned tensors) up to
+  :data:`MAX_SIMT_HEAD_DIM` (128), on the fp32 pipes. A call above that
+  which the wgmma route does not take raises.
 
 Both are built with the port's other kernels into one library on first
 use (:mod:`repro_torch.kernels.build`); nothing here runs at import time.
@@ -30,10 +32,13 @@ import torch
 
 from .build import library
 
-__all__ = ["MAX_HEAD_DIM", "ROUTES", "build", "launch", "route",
-           "tolerance"]
+__all__ = ["MAX_HEAD_DIM", "MAX_SIMT_HEAD_DIM", "ROUTES", "build",
+           "launch", "max_head_dim", "route", "tolerance"]
 
-MAX_HEAD_DIM = 128
+#: the largest head dim of the wgmma route (bf16; 144..256 pad to 256)
+MAX_HEAD_DIM = 256
+#: the largest head dim of the SIMT route (fp32, and what wgmma refuses)
+MAX_SIMT_HEAD_DIM = 128
 ROUTES = ("wgmma", "simt")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -45,13 +50,20 @@ route_launches = {r: 0 for r in ROUTES}
 
 def route(dtype: torch.dtype, hd: int, aligned: bool) -> str:
     """The kernel a CUDA call takes: ``"wgmma"`` for bf16 with a head dim
-    that is a multiple of 16 in [16, 128] when every tensor starts on a
+    that is a multiple of 16 in [16, 256] when every tensor starts on a
     16-byte boundary (what TMA and the tensor cores take), else
-    ``"simt"``."""
+    ``"simt"`` (which takes head dims up to 128)."""
     if (dtype == torch.bfloat16 and hd % 16 == 0
             and 16 <= hd <= MAX_HEAD_DIM and aligned):
         return "wgmma"
     return "simt"
+
+
+def max_head_dim(dtype: torch.dtype) -> int:
+    """The largest head dim a call in ``dtype`` may have: bf16 reaches
+    the wgmma route's 256 (a multiple of 16 on aligned tensors above
+    128), fp32 the SIMT route's 128."""
+    return MAX_HEAD_DIM if dtype == torch.bfloat16 else MAX_SIMT_HEAD_DIM
 
 
 def tolerance(route_name: str, dtype: torch.dtype,
@@ -108,6 +120,10 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sk, Hkv = k.shape[1], k.shape[2]
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, out))
     which = route(q.dtype, hd, aligned)
+    if which == "simt" and hd > MAX_SIMT_HEAD_DIM:
+        raise ValueError(f"head dim {hd} takes the wgmma route only (bf16, "
+                         f"a multiple of 16, 16-byte-aligned tensors); the "
+                         f"SIMT route stops at {MAX_SIMT_HEAD_DIM}")
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     dims = (B, Sq, Sk, Hq, Hkv, hd, int(causal), int(window or 0),
             1.0 / math.sqrt(hd))

@@ -125,7 +125,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Causal / sliding-window GQA flash attention in the model layout.
 
     q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd); one dtype (float32 or
-    bfloat16), one device, contiguous; ``Hq % Hkv == 0``, ``hd <= 128``;
+    bfloat16), one device, contiguous; ``Hq % Hkv == 0``, ``hd`` at most
+    256 in bf16 and 128 in fp32
+    (:func:`repro_torch.kernels.flash_attention.max_head_dim`);
     ``window`` None or a positive int. Queries are right-aligned at
     position ``i + Sk - Sq``; a row with no live key gives 0. Returns
     (B, Sq, Hq, hd) in q's dtype."""
@@ -150,9 +152,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Hq % Hkv:
         raise ValueError(f"{Hq} query heads are not a multiple of {Hkv} "
                          "kv heads")
-    if hd > _fa.MAX_HEAD_DIM:
+    if hd > _fa.max_head_dim(dtype):
         raise ValueError(f"head dim {hd} exceeds the kernel's maximum of "
-                         f"{_fa.MAX_HEAD_DIM}")
+                         f"{_fa.max_head_dim(dtype)} in {dtype}")
     if window is not None and (isinstance(window, bool)
                                or not isinstance(window, int) or window < 1):
         raise ValueError(f"window must be None or a positive int, got "

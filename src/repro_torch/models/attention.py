@@ -47,17 +47,20 @@ from .common import (FSDP, TP, P, apply_rope, assign, check_impl,
 
 
 class Attention(nn.Module):
-    """``wq`` (D, Hq*hd), ``wk``/``wv`` (D, Hkv*hd), ``wo`` (Hq*hd, D),
-    and with ``cfg.qkv_bias`` the biases ``bq``, ``bk``, ``bv``."""
+    """``wq`` (Din, Hq*hd), ``wk``/``wv`` (Din, Hkv*hd), ``wo`` (Hq*hd,
+    D), and with ``cfg.qkv_bias`` the biases ``bq``, ``bk``, ``bv``; the
+    input width ``Din`` is ``d_in`` (Zamba2's shared block reads 2D), by
+    default D."""
 
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, device, d_in=None):
         super().__init__()
         dt = dtype_of(cfg.param_dtype)
         D, hd = cfg.d_model, cfg.resolved_head_dim
+        Din = d_in or D
         Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
-        self.wq = param((D, Hq * hd), dt, device)
-        self.wk = param((D, Hkv * hd), dt, device)
-        self.wv = param((D, Hkv * hd), dt, device)
+        self.wq = param((Din, Hq * hd), dt, device)
+        self.wk = param((Din, Hkv * hd), dt, device)
+        self.wv = param((Din, Hkv * hd), dt, device)
         self.wo = param((Hq * hd, D), dt, device)
         if cfg.qkv_bias:
             self.bq = param((Hq * hd,), dt, device)
@@ -158,7 +161,7 @@ def _project_qkv(p: Attention, x, cfg, positions, rows=None):
         k = _heads(k, cfg.n_kv_heads, hd, seq)
         v = _heads(v, cfg.n_kv_heads, hd, seq)
         if positions is not None:
-            q = apply_rope(q, positions, cfg.rope_theta)
+            q = apply_rope(q, positions, cfg.rope_theta, cfg.query_scale)
             k = apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 

@@ -716,8 +716,11 @@ def rope_freqs(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+def apply_rope(x, positions, theta: float, scale: float = 1.0):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S). With
+    ``scale`` other than 1 the rotated fp32 values are multiplied by it
+    before their one rounding to x's dtype (a query scaled for a score
+    scale other than ``1/sqrt(hd)``, :attr:`ModelConfig.query_scale`)."""
     with obs.span("attention.rope"):
         hd = x.shape[-1]
         freqs = rope_freqs(hd, theta, x.device)            # (hd/2,)
@@ -726,6 +729,8 @@ def apply_rope(x, positions, theta: float):
         sin = torch.sin(angles)[..., :, None, :]
         x1, x2 = x.float().chunk(2, dim=-1)
         out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+        if scale != 1.0:
+            out = out * scale
         return out.to(x.dtype)
 
 

@@ -11,13 +11,18 @@ from .common import (FSDP, TP, P, dense_init, dtype_of, matmul, param,
 
 
 class MLP(nn.Module):
-    """SwiGLU (``w_gate``, ``w_up``, ``w_down``) or, with ``gelu``, the
-    Whisper-style 2-matrix GELU MLP (``w_in``, ``w_out``)."""
+    """The gated MLP (``w_gate``, ``w_up``, ``w_down``): SwiGLU, or with
+    ``cfg.hidden_act == "gelu"`` gated GELU (erf, as Zamba2's); or, with
+    ``gelu``, the Whisper-style 2-matrix GELU MLP (``w_in``, ``w_out``)."""
 
     def __init__(self, cfg, device, d_ff=None, gelu: bool = False):
         super().__init__()
         dt = dtype_of(cfg.param_dtype)
         D, Fh = cfg.d_model, d_ff or cfg.d_ff
+        if cfg.hidden_act not in ("silu", "gelu"):
+            raise ValueError(f"hidden_act must be silu or gelu, got "
+                             f"{cfg.hidden_act!r}")
+        self.act = cfg.hidden_act
         if gelu:
             self.w_in = param((D, Fh), dt, device)
             self.w_out = param((Fh, D), dt, device)
@@ -45,7 +50,11 @@ def spec_mlp(gelu: bool = False):
             "w_down": P(TP, FSDP)}
 
 
-def mlp(p: MLP, x):
+def mlp(p: MLP, x, adapter=None):
+    """``adapter``: None, or a module with ``lora_a`` (D, r) and
+    ``lora_b`` (r, 2F) whose product is added to the gate (its first F
+    columns) and the up projection (the rest) before the activation, as
+    Zamba2's per-application LoRA on ``gate_up``."""
     with obs.span("mlp"):
         if hasattr(p, "w_in"):
             h = F.gelu(matmul(x, p.w_in.to(x.dtype)),
@@ -53,4 +62,11 @@ def mlp(p: MLP, x):
             return residual(matmul(h, p.w_out.to(x.dtype)))
         g = matmul(x, p.w_gate.to(x.dtype))
         u = matmul(x, p.w_up.to(x.dtype))
-        return residual(matmul(F.silu(g) * u, p.w_down.to(x.dtype)))
+        if adapter is not None:
+            with obs.span("shared.adapter"):
+                gu = matmul(matmul(x, adapter.lora_a.to(x.dtype)),
+                            adapter.lora_b.to(x.dtype))
+                g = g + gu[..., :g.shape[-1]]
+                u = u + gu[..., g.shape[-1]:]
+        act = F.gelu(g) if p.act == "gelu" else F.silu(g)
+        return residual(matmul(act * u, p.w_down.to(x.dtype)))

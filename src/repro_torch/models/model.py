@@ -5,6 +5,8 @@
   prefill(cfg, params, tokens, max_seq, extra, …)      → (logits, cache)
   decode_step(cfg, params, cache, tokens, pos, device) → (logits, cache)
   decode_graphable(cfg)                                → bool
+  graph_policy(cfg)                                    → GraphPolicy
+  count_decode_step(cfg, cache, pos)                   → None
   init_cache(cfg, batch, max_seq, dtype, device)       → cache
   extra_inputs(cfg, batch, seq, mode, generator, …)    → modality stubs
   text_len(cfg, seq)
@@ -25,6 +27,7 @@ forward-only) or the differentiable plain route the train step runs
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -168,6 +171,33 @@ def decode_graphable(cfg) -> bool:
     host sync (the family module's ``GRAPH_DECODE_FAMILIES``)."""
     return cfg.family in getattr(_family_module(cfg),
                                  "GRAPH_DECODE_FAMILIES", ())
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphPolicy:
+    """How :func:`repro_torch.train.serve.make_serve_step` holds a
+    family's cache under its decode graph (the family module's
+    ``RECURRENT_CACHE`` and ``GRAPH_RECAPTURES``). ``recurrent``: the
+    cache entries a step rewrites beyond its own position (a recurrent
+    state), kept across the eager steps run before a capture.
+    ``recaptures``: the graph holds its cache weakly, and a call after
+    the caller dropped that cache captures anew on the call's cache
+    (else the graph keeps its cache alive and copies another one in)."""
+    recurrent: tuple = ()
+    recaptures: bool = False
+
+
+def graph_policy(cfg) -> GraphPolicy:
+    mod = _family_module(cfg)
+    return GraphPolicy(tuple(getattr(mod, "RECURRENT_CACHE", ())),
+                       bool(getattr(mod, "GRAPH_RECAPTURES", False)))
+
+
+def count_decode_step(cfg, cache, pos: int) -> None:
+    """Count on the host (:mod:`repro_torch.obs`) what one decode step
+    at ``pos`` over ``cache`` reads, as its eager int-``pos`` step counts
+    it (a replayed graph counts nothing itself)."""
+    _family_module(cfg).count_decode_step(cfg, cache, pos)
 
 
 @torch.no_grad()

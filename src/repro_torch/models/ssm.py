@@ -12,7 +12,8 @@ runs the scan kernel (:func:`repro_torch.kernels.ops.mamba_scan`) on fp32
 inputs in both blocks: Mamba-1 as the reference's ``attn_impl="flash"``
 route does, and Mamba-2 as the Mamba-1 scan of its ``H * Pd`` channels
 with each head's dt, A and D repeated over the head's ``Pd`` channels (the
-reference runs its plain recurrence there). The kernel is forward-only.
+reference runs its plain recurrence there), one call for each of its
+``mamba_ngroups`` groups of B and C. The kernel is forward-only.
 ``"xla"`` (training's route) runs the plain recurrences
 :func:`mamba1_scan` and :func:`mamba2_scan`, differentiable, over
 rematerialised 256-step chunks as the reference's ``_chunked_scan``.
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import obs
 from ..kernels import ops as kops
 from .common import (FSDP, TP, P, check_impl, current_mesh, dense_init,
                      dtype_of, matmul, param, residual, rms_norm, shard_map,
@@ -237,16 +239,21 @@ def mamba1_block(p: Mamba1, x, cfg, state=None, impl: str = "flash"):
 #  Mamba-2 (SSD, scalar A per head)
 # ---------------------------------------------------------------------- #
 class Mamba2(nn.Module):
-    """Parameters named as the reference's: ``in_proj`` (D, 2Di+2N+H:
-    z, x, B, C, dt), ``conv_w``/``conv_b`` over the Di+2N conv channels,
-    ``A_log``, ``dt_bias``, ``D`` (one per head, fp32 always),
-    ``norm_w`` and ``out_proj``."""
+    """Parameters named as the reference's: ``in_proj`` (D, 2Di+2GN+H:
+    z, x, B and C of each of the G = ``cfg.mamba_ngroups`` groups, dt),
+    ``conv_w``/``conv_b`` over the Di+2GN conv channels, ``A_log``,
+    ``dt_bias``, ``D`` (one per head, fp32 always), ``norm_w`` and
+    ``out_proj``."""
 
     def __init__(self, cfg, device):
         super().__init__()
         dt = dtype_of(cfg.param_dtype)
-        D, Di, N, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+        D, Di, K = cfg.d_model, cfg.d_inner, cfg.ssm_conv
+        N = cfg.mamba_ngroups * cfg.ssm_state
         H = Di // cfg.ssm_head_dim
+        if H % cfg.mamba_ngroups:
+            raise ValueError(f"{H} Mamba-2 heads do not split into "
+                             f"mamba_ngroups={cfg.mamba_ngroups} groups")
         f32 = torch.float32
         self.in_proj = param((D, 2 * Di + 2 * N + H), dt, device)
         self.conv_w = param((Di + 2 * N, K), dt, device)
@@ -276,9 +283,11 @@ class Mamba2(nn.Module):
 def mamba2_scan(u, dt, A, Bm, Cm, D, h0=None):
     """Sequential Mamba-2 scan (the training and decode route, and the
     reference's recurrence). u: (B, L, H, Pd); dt: (B, L, H); A, D: (H,);
-    Bm/Cm: (B, L, N); h0: (B, H, Pd, N) or None. The inputs stream in u's
-    dtype and are upcast per step; each step's ``h·C`` is rounded to u's
-    dtype. Returns (y (B, L, H, Pd) fp32, h_last (B, H, Pd, N) fp32)."""
+    Bm/Cm: (B, L, N), or (B, L, G, N) for G groups (head j reads group
+    ``j // (H / G)``); h0: (B, H, Pd, N) or None. The inputs stream in
+    u's dtype and are upcast per step; each step's ``h·C`` is rounded to
+    u's dtype. Returns (y (B, L, H, Pd) fp32, h_last (B, H, Pd, N)
+    fp32)."""
     Bsz, L, H, Pd = u.shape
     N = Bm.shape[-1]
     if _stand_in(u, h0):
@@ -286,6 +295,8 @@ def mamba2_scan(u, dt, A, Bm, Cm, D, h0=None):
     h = (torch.zeros((Bsz, H, Pd, N), dtype=torch.float32, device=u.device)
          if h0 is None else h0)
     dt_s, B_s, C_s = (t.to(u.dtype) for t in (dt, Bm, Cm))
+    grouped = Bm.dim() == 4
+    rep = H // Bm.shape[2] if grouped else 1
 
     def run(h, lo, hi):
         ys = []
@@ -293,9 +304,17 @@ def mamba2_scan(u, dt, A, Bm, Cm, D, h0=None):
             u_t, dt_t, B_t, C_t = (a[:, t].float()
                                    for a in (u, dt_s, B_s, C_s))
             dA = torch.exp(dt_t * A[None])                       # (B, H)
-            dBu = (dt_t[..., None] * u_t)[..., None] * B_t[:, None, None, :]
+            if grouped:
+                # each head's group: (B, G, N) -> (B, H, N)
+                B_t = B_t.repeat_interleave(rep, dim=1)[:, :, None]
+                C_t = C_t.repeat_interleave(rep, dim=1)
+                out = "bhpn,bhn->bhp"
+            else:
+                B_t = B_t[:, None, None, :]
+                out = "bhpn,bn->bhp"
+            dBu = (dt_t[..., None] * u_t)[..., None] * B_t
             h = dA[..., None, None] * h + dBu
-            ys.append(torch.einsum("bhpn,bn->bhp", h, C_t).to(u.dtype))
+            ys.append(torch.einsum(out, h, C_t).to(u.dtype))
         return h, torch.stack(ys, dim=1)
 
     h, ys = _chunked_scan(run, h, L)
@@ -305,7 +324,9 @@ def mamba2_scan(u, dt, A, Bm, Cm, D, h0=None):
 
 def mamba2_block(p: Mamba2, x, cfg, state=None, impl: str = "flash"):
     """x: (B, L, D). state: None, or dict(conv, ssm) for decode; a prompt
-    takes the route ``impl`` names. Returns (out, new_state).
+    takes the route ``impl`` names. Returns (out, new_state), as one
+    ``mamba`` span (:mod:`repro_torch.obs`) holding a ``mamba.scan``
+    span around the scan.
 
     On the ``"flash"`` route a prompt goes through the scan kernel as a
     Mamba-1 scan over the ``Di = H * Pd`` channels: dt rounded to the
@@ -318,28 +339,41 @@ def mamba2_block(p: Mamba2, x, cfg, state=None, impl: str = "flash"):
 
     Under a mesh whose ``model`` axis divides the heads, everything from
     the second split to the gated norm runs on each rank's heads
-    (:func:`_mamba2_sharded`)."""
+    (:func:`_mamba2_sharded`).
+
+    With ``cfg.mamba_ngroups`` G > 1, B and C are (B, L, G, N): head j
+    reads group ``j // (H / G)``, the kernel's route scans each group's
+    heads in a call of its own, and the gated norm normalises each
+    group's Di / G channels apart. No mesh takes G > 1."""
     check_impl(impl)
-    Di, N = cfg.d_inner, cfg.ssm_state
-    H = Di // cfg.ssm_head_dim
-    proj = matmul(x, p.in_proj.to(x.dtype))
-    z, xBC, dt_raw = split_last(proj, (Di, Di + 2 * N, H))
-    conv_state = state["conv"] if state is not None else None
-    xBC, new_conv = causal_conv1d(xBC, p.conv_w, p.conv_b, conv_state)
-    xBC = F.silu(xBC)
-    xs, Bm, Cm = split_last(xBC, (Di, N, N))
-    h0 = state["ssm"] if state is not None else None
-    mesh = current_mesh()
-    if mesh is not None and TP in mesh.mesh_dim_names and \
-            H % mesh.size(list(mesh.mesh_dim_names).index(TP)) == 0:
-        y, h_last = _mamba2_sharded(p, xs, Bm, Cm, dt_raw, z, h0, cfg,
-                                    impl, x.dtype, mesh)
-    else:
-        y, h_last = _mamba2_core(xs, Bm, Cm, dt_raw, z, p.dt_bias, p.A_log,
-                                 p.D, p.norm_w, h0, cfg, impl, x.dtype,
-                                 rms_norm)
-    return (residual(matmul(y, p.out_proj.to(x.dtype))),
-            {"conv": new_conv, "ssm": h_last})
+    with obs.span("mamba"):
+        Di, G = cfg.d_inner, cfg.mamba_ngroups
+        N = G * cfg.ssm_state
+        H = Di // cfg.ssm_head_dim
+        proj = matmul(x, p.in_proj.to(x.dtype))
+        z, xBC, dt_raw = split_last(proj, (Di, Di + 2 * N, H))
+        conv_state = state["conv"] if state is not None else None
+        xBC, new_conv = causal_conv1d(xBC, p.conv_w, p.conv_b, conv_state)
+        xBC = F.silu(xBC)
+        xs, Bm, Cm = split_last(xBC, (Di, N, N))
+        if G > 1:
+            Bm = Bm.unflatten(-1, (G, cfg.ssm_state))
+            Cm = Cm.unflatten(-1, (G, cfg.ssm_state))
+        h0 = state["ssm"] if state is not None else None
+        mesh = current_mesh()
+        if mesh is not None and G > 1:
+            raise ValueError(f"mamba_ngroups={G}: no mesh takes grouped "
+                             "B and C")
+        if mesh is not None and TP in mesh.mesh_dim_names and \
+                H % mesh.size(list(mesh.mesh_dim_names).index(TP)) == 0:
+            y, h_last = _mamba2_sharded(p, xs, Bm, Cm, dt_raw, z, h0, cfg,
+                                        impl, x.dtype, mesh)
+        else:
+            y, h_last = _mamba2_core(xs, Bm, Cm, dt_raw, z, p.dt_bias,
+                                     p.A_log, p.D, p.norm_w, h0, cfg, impl,
+                                     x.dtype, rms_norm)
+        return (residual(matmul(y, p.out_proj.to(x.dtype))),
+                {"conv": new_conv, "ssm": h_last})
 
 
 def _mamba2_core(xs, Bm, Cm, dt_raw, z, dt_bias, A_log, D, norm_w, h0, cfg,
@@ -354,19 +388,51 @@ def _mamba2_core(xs, Bm, Cm, dt_raw, z, dt_bias, A_log, D, norm_w, h0, cfg,
     H = Di // Pd
     dt = F.softplus(dt_raw.float() + dt_bias[None, None])   # (B, L, H)
     A = -torch.exp(A_log)
-    if impl == "flash" and h0 is None and L > 1:
-        dt_c = dt.to(dtype).float().repeat_interleave(Pd, dim=-1)
-        A_c = A.repeat_interleave(Pd)[:, None].expand(Di, N).contiguous()
+    with obs.span("mamba.scan"):
+        if impl == "flash" and h0 is None and L > 1:
+            y, h_last = _kernel_scan(xs, dt, A, Bm, Cm, D, dtype, Pd)
+        else:
+            y, h_last = mamba2_scan(xs.reshape(B, L, H, Pd), dt, A, Bm, Cm,
+                                    D, h0)
+    y = y.reshape(B, L, Di).to(dtype) * F.silu(z)
+    if Bm.dim() == 4:
+        G = Bm.shape[2]
+        return norm(y.unflatten(-1, (G, Di // G)),
+                    norm_w.view(G, Di // G), cfg.norm_eps).flatten(-2), h_last
+    return norm(y, norm_w, cfg.norm_eps), h_last
+
+
+def _kernel_scan(xs, dt, A, Bm, Cm, D, dtype, Pd):
+    """A prompt's scan through the kernel as the Mamba-1 scan of its
+    ``H * Pd`` channels (see :func:`mamba2_block`), one call for B and C
+    of (B, L, N), else one call for each group's heads with its own B and
+    C (B, L, G, N): the kernel takes one B and C for all its channels.
+    Returns (y (B, L, Di) fp32, h_last (B, H, Pd, N) fp32)."""
+    B, L, Di = xs.shape
+    N = Bm.shape[-1]
+    H = Di // Pd
+    dt_c = dt.to(dtype).float().repeat_interleave(Pd, dim=-1)
+    A_c = A.repeat_interleave(Pd)[:, None].expand(Di, N).contiguous()
+    D_c = D.repeat_interleave(Pd)
+    if Bm.dim() == 3:
         y, h_last = kops.mamba_scan(xs.float().contiguous(), dt_c, A_c,
                                     Bm.float().contiguous(),
-                                    Cm.float().contiguous(),
-                                    D.repeat_interleave(Pd))
-        h_last = h_last.reshape(B, H, Pd, N)
-    else:
-        y, h_last = mamba2_scan(xs.reshape(B, L, H, Pd), dt, A, Bm, Cm, D,
-                                h0)
-    y = y.reshape(B, L, Di).to(dtype) * F.silu(z)
-    return norm(y, norm_w, cfg.norm_eps), h_last
+                                    Cm.float().contiguous(), D_c)
+        return y, h_last.reshape(B, H, Pd, N)
+    G = Bm.shape[2]
+    c = Di // G
+    ys, hs = [], []
+    for g in range(G):
+        ch = slice(g * c, (g + 1) * c)
+        y, h = kops.mamba_scan(xs[..., ch].float().contiguous(),
+                               dt_c[..., ch].contiguous(),
+                               A_c[ch].contiguous(),
+                               Bm[:, :, g].float().contiguous(),
+                               Cm[:, :, g].float().contiguous(),
+                               D_c[ch].contiguous())
+        ys.append(y)
+        hs.append(h)
+    return torch.cat(ys, dim=-1), torch.cat(hs, dim=1).reshape(B, H, Pd, N)
 
 
 def _mamba2_sharded(p: Mamba2, xs, Bm, Cm, dt_raw, z, h0, cfg, impl,

@@ -204,6 +204,14 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
 GRAPH_DECODE_FAMILIES = ("dense",)
 
 
+def count_decode_step(cfg, cache, pos: int) -> None:
+    """The position counters of one decode step's attentions over each
+    stack of ``cache`` (:func:`attention.count_positions`)."""
+    for stack in cache.values():
+        n, B, _, S_max, _ = stack["k"].shape
+        attn_mod.count_positions(B, S_max, pos, cfg.sliding_window, n)
+
+
 def decode_step(params: TransformerLM, cache, tokens, pos, cfg):
     """tokens: (B, 1); pos: the position being written, an int or a 0-d
     int64 tensor on the tokens' device (:func:`attention.attention_decode`).

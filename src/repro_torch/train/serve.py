@@ -3,12 +3,13 @@ them. Each runs on ``device`` (default ``"cuda"``, which raises where CUDA
 is absent; pass ``device="cpu"``) with no autograd."""
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from .. import obs
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models import model as model_lib
-from ..models.attention import count_positions
 from ..models.common import current_mesh
 
 #: eager steps run on the capture stream before a decode step is captured
@@ -34,13 +35,22 @@ def make_serve_step(cfg, device=DEFAULT_DEVICE):
     to device, and leaves it unwritten; the returned cache is always the
     bound one, so pass back what the step returned. Another ``params``
     captures anew. The logits are a fresh tensor each call. Inner spans
-    run at capture only; ``attention.positions_*`` are counted here for
-    each call, and each call counts one of ``serve.graph_captures``,
+    run at capture only; what the eager step counts
+    (``model.count_decode_step``) is counted here for each call, and each
+    call counts one of ``serve.graph_captures``,
     ``serve.graph_cache_copies`` (it then replays) or
     ``serve.graph_replays``. Everywhere else the step is eager; a capture
-    that fails raises."""
+    that fails raises.
+
+    The family's ``model.graph_policy`` adapts this to a recurrent cache
+    (the hybrid's conv and SSM state): its recurrent entries are kept
+    across the warm-up steps (which would advance them), and the graph
+    holds its cache weakly: a call made after the caller dropped the
+    bound cache captures anew on the call's cache, so that a new
+    request's cache is never held beside the last one's."""
     dev = resolve_device(device)
     graphable = dev.type == "cuda" and model_lib.decode_graphable(cfg)
+    policy = model_lib.graph_policy(cfg)
     graphs: dict = {}
 
     @torch.no_grad()
@@ -50,26 +60,38 @@ def make_serve_step(cfg, device=DEFAULT_DEVICE):
                 return model_lib.decode_step(cfg, params, cache, tokens, pos,
                                              device=dev)
             key = (tuple(tokens.shape), _layout(cache))
-            g = graphs.get(key)
-            if g is None or g.params is not params:
-                g = graphs[key] = _DecodeGraph(cfg, params, cache, tokens,
-                                               pos, dev)
+            g = graphs.pop(key, None)
+            if g is None or g.params is not params or g.cache is None:
+                del g                 # its memory pool before the next one
+                g = _DecodeGraph(cfg, params, cache, tokens, pos, dev,
+                                 policy)
                 obs.count("serve.graph_captures", 1)
             elif g.bound(cache):
                 obs.count("serve.graph_replays", 1)
             else:
                 g.copy_in(cache)
                 obs.count("serve.graph_cache_copies", 1)
+            graphs[key] = g
+            bound = g.cache
             if obs.on:
-                g.count(int(pos))
-            return g(tokens, pos), g.cache
+                model_lib.count_decode_step(cfg, bound, int(pos))
+            return g(tokens, pos), bound
 
     return serve_step
 
 
 def _leaves(cache) -> list:
-    """The cache's tensors ({stack: {"k": …, "v": …}}), in a fixed order."""
-    return [cache[n][s] for n in sorted(cache) for s in sorted(cache[n])]
+    """The cache's tensors, in a fixed order: ``{stack: {"k": …, "v": …}}``
+    (the transformer's) or ``{name: tensor}`` (the hybrid's)."""
+    return [t for n in sorted(cache) for t in (
+        [cache[n][s] for s in sorted(cache[n])]
+        if isinstance(cache[n], dict) else [cache[n]])]
+
+
+def _map_cache(cache, fn):
+    """``cache`` with ``fn`` applied to each tensor, its layout kept."""
+    return {n: fn(v) if not isinstance(v, dict) else _map_cache(v, fn)
+            for n, v in cache.items()}
 
 
 def _layout(cache) -> tuple:
@@ -86,15 +108,21 @@ def _plain_cache(cache) -> bool:
 
 class _DecodeGraph:
     """One captured decode step: the graph, what it binds (``params``,
-    ``cache``, the token and position buffers) and its logits."""
+    ``cache``, the token and position buffers) and its logits. Under a
+    ``policy`` that recaptures, the cache is held weakly: ``cache`` is
+    None once the caller has dropped it."""
 
-    def __init__(self, cfg, params, cache, tokens, pos, dev):
-        self.cfg, self.params, self.cache = cfg, params, cache
-        self.leaves = _leaves(cache)
+    def __init__(self, cfg, params, cache, tokens, pos, dev, policy):
+        self.params = params
+        self._cache = None if policy.recaptures else cache
+        self._weak = (_map_cache(cache, weakref.ref) if policy.recaptures
+                      else None)
         self.tokens = torch.empty(tuple(tokens.shape), dtype=torch.int64,
                                   device=dev)
         self.pos = torch.zeros((), dtype=torch.int64, device=dev)
         self._load(tokens, pos)
+        # the warm-up steps advance a recurrent state: kept, put back
+        kept = {n: cache[n].clone() for n in policy.recurrent}
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
@@ -102,6 +130,9 @@ class _DecodeGraph:
                 model_lib.decode_step(cfg, params, cache, self.tokens,
                                       self.pos, device=dev)
         torch.cuda.current_stream(dev).wait_stream(stream)
+        for n, t in kept.items():
+            cache[n].copy_(t)
+        del kept
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, stream=stream):
             self.logits, _ = model_lib.decode_step(
@@ -114,21 +145,23 @@ class _DecodeGraph:
         else:
             self.pos.fill_(pos)
 
+    @property
+    def cache(self):
+        """The bound cache, or None once a weakly held one was dropped."""
+        if self._weak is None:
+            return self._cache
+        cache = _map_cache(self._weak, lambda ref: ref())
+        return None if any(t is None for t in _leaves(cache)) else cache
+
     def bound(self, cache) -> bool:
         """Whether ``cache``'s tensors are the bound ones."""
         return all(a.data_ptr() == b.data_ptr() and a.shape == b.shape
                    and a.dtype == b.dtype and a.stride() == b.stride()
-                   for a, b in zip(_leaves(cache), self.leaves))
+                   for a, b in zip(_leaves(cache), _leaves(self.cache)))
 
     def copy_in(self, cache) -> None:
-        for dst, src in zip(self.leaves, _leaves(cache)):
+        for dst, src in zip(_leaves(self.cache), _leaves(cache)):
             dst.copy_(src)
-
-    def count(self, pos: int) -> None:
-        """The decode attentions' position counters of one step."""
-        for stack in self.cache.values():
-            n, B, _, S_max, _ = stack["k"].shape
-            count_positions(B, S_max, pos, self.cfg.sliding_window, n)
 
     def __call__(self, tokens, pos):
         self._load(tokens, pos)

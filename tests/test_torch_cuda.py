@@ -239,6 +239,40 @@ def test_wgmma_route_at_the_families_serving_shapes(shape, kw):
     test_wgmma_route_matches_plain_version(shape, kw)
 
 
+#: head dims above 128, which pad to the 256-column variant with 64-key
+#: tiles: 144, 224 (Zamba2-7B's shared attention) and 256, causal and
+#: not, ragged against the 128-row query tile and the 64-key tile, with
+#: right-aligned queries, a window and GQA; then Zamba2-7B's prefill shape
+WGMMA_WIDE = [
+    ((1, 70, 4, 2, 144, None), {}),
+    ((2, 130, 4, 4, 144, None), {"causal": False}),
+    ((1, 200, 6, 3, 224, None), {}),
+    ((2, 97, 4, 4, 224, None), {"causal": False}),
+    ((1, 33, 4, 2, 224, 161), {}),               # right-aligned queries
+    ((1, 300, 4, 4, 224, None), {"window": 100}),
+    ((1, 77, 4, 1, 256, None), {}),
+    ((2, 129, 2, 2, 256, 65), {"causal": False}),
+    ((1, 4096, 32, 32, 224, None), {}),          # Zamba2-7B's prefill
+]
+
+
+@pytest.mark.parametrize("shape,kw", WGMMA_WIDE)
+def test_wgmma_route_above_head_dim_128(shape, kw):
+    test_wgmma_route_matches_plain_version(shape, kw)
+
+
+def test_unaligned_head_dim_224_raises():
+    """bf16 at head dim 224 on a tensor off a 16-byte boundary would take
+    the SIMT route, which stops at 128: it raises, launching nothing."""
+    dev = _card()
+    q, k, v = _qkv(8, 1, 40, 4, 2, 224, torch.bfloat16, dev)
+    q = torch.cat([q.new_zeros(1), q.flatten()])[1:].view(q.shape)
+    before = fa.launches
+    with pytest.raises(ValueError, match="SIMT route stops at 128"):
+        ops.flash_attention(q, k, v)
+    assert fa.launches == before
+
+
 def test_scan_kernel_at_the_hybrid_serving_shape():
     """Zamba2-7B's Mamba-2 prefill as a Mamba-1 scan: 7168 channels, 64
     states; each head's A repeated over its 64 channels, as the block

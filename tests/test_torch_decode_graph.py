@@ -23,7 +23,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.configs import get_config
-from repro_torch.configs.base import reduce_for_smoke
+from repro_torch.configs.base import reduce_for_smoke, with_port_fields
 from repro_torch.models import attention as attn, model, transformer
 from repro_torch.train import serve
 
@@ -246,3 +246,81 @@ def test_serve_step_inside_a_callers_capture_is_eager():
     torch.cuda.synchronize()
     assert torch.equal(held, want)
     assert _same_cache(cache, twin)
+
+
+def _hybrid(form, dtype):
+    """The hybrid at a test's size: the reference's residual form (the
+    stand-in) or Zamba2's (two groups, two blocks, a LoRA)."""
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("zamba2-7b")),
+                              param_dtype=dtype, activation_dtype=dtype)
+    if form == "zamba2":
+        cfg = with_port_fields(
+            cfg, n_layers=7, hidden_act="gelu", mamba_ngroups=2,
+            shared_block="zamba2", num_mem_blocks=2, adapter_rank=4,
+            hybrid_layer_ids=(1, 4, 5), tie_embeddings=True,
+            hybrid_attn_period=0)
+    return cfg
+
+
+def _flat_clone(cache):
+    return {k: v.clone() for k, v in cache.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["residual", "zamba2"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_graph_step_equals_the_eager_step_on_the_card(form, dtype):
+    """Three requests of B 4 through the serve step against
+    ``model.decode_step`` with an int ``pos``: the second's cache passed
+    while the first's is alive (copied in), the third's after both were
+    dropped (captured anew, the graph holding its cache weakly). Equal
+    tokens and logits bit for bit, so the warm-up steps before each
+    capture left the conv and SSM state as they found it; 2 captures, 1
+    copy, 27 replays; the counters as the eager steps count them."""
+    dev = _card()
+    cfg = _hybrid(form, dtype)
+    assert model.decode_graphable(cfg)
+    B, S, max_seq, n = 4, 24, 64, 10
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    g = torch.Generator().manual_seed(8)
+    prompts = [torch.randint(0, cfg.vocab_size, (B, S), generator=g).to(dev)
+               for _ in range(3)]
+    step = serve.make_serve_step(cfg, device=dev)
+
+    def run(decode):
+        out, counts, caches = [], [], []
+        for r, prompt in enumerate(prompts):
+            if r == 2:
+                caches.clear()          # the first two requests dropped
+            logits, cache = model.prefill(cfg, params, prompt, max_seq,
+                                          device=dev)
+            caches.append(cache)
+            tok = logits[:, -1:].argmax(dim=-1)
+            obs.enable()
+            for i in range(n):
+                logits, cache = decode(cache, tok, S + i)
+                tok = logits[:, -1:].argmax(dim=-1)
+                out.append(logits)
+            obs.disable()
+            counts.append(obs.drain().counts)
+            caches[-1] = cache
+        torch.cuda.synchronize()
+        return out, counts, caches[-1]
+
+    got, got_counts, got_cache = run(lambda c, t, p: step(params, c, t, p))
+    want, want_counts, want_cache = run(
+        lambda c, t, p: model.decode_step(cfg, params, c, t, p, device=dev))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert all(torch.equal(got_cache[k], want_cache[k]) for k in got_cache)
+    graph = {k: sum(c.get(k, 0) for c in got_counts) for k in (
+        "serve.graph_captures", "serve.graph_cache_copies",
+        "serve.graph_replays")}
+    assert graph == {"serve.graph_captures": 2,
+                     "serve.graph_cache_copies": 1,
+                     "serve.graph_replays": 27}
+    for a, b in zip(got_counts, want_counts):
+        for k in ("attention.positions_attended", "attention.positions_live",
+                  "mamba.state_bytes"):
+            assert a[k] == b[k]

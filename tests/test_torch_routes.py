@@ -74,3 +74,35 @@ def test_cpu_calls_count_no_route():
                .bfloat16() for _ in range(3))
     ops.flash_attention(q, k, v)
     assert fa.route_launches == before
+
+
+@pytest.mark.parametrize("hd", (144, 224, 256, 272))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_route_above_head_dim_128(dtype, hd):
+    """bf16 head dims that are a multiple of 16 up to 256 take the wgmma
+    route (its 256-column variant); nothing above 256 does, and the
+    SIMT route stops at 128."""
+    want = "wgmma" if dtype == torch.bfloat16 and hd <= 256 else "simt"
+    assert fa.route(dtype, hd, True) == want
+    assert fa.route(dtype, hd, False) == "simt"
+    assert fa.max_head_dim(dtype) == (256 if dtype == torch.bfloat16
+                                      else 128)
+
+
+def _attn_args(hd, dtype):
+    rng = np.random.default_rng(1)
+    return [torch.from_numpy(rng.normal(size=(1, 9, 2, hd))).to(dtype)
+            for _ in range(3)]
+
+
+def test_head_dim_224_by_dtype_on_the_cpu():
+    """bf16 at head dim 224 runs (the plain version, as the wgmma route
+    would take it on a card); fp32 at 224 raises, as on the card, where
+    the SIMT route stops at 128; bf16 above 256 raises."""
+    out = ops.flash_attention(*_attn_args(224, torch.bfloat16))
+    assert out.shape == (1, 9, 2, 224) and bool(torch.isfinite(out).all())
+    with pytest.raises(ValueError, match="maximum of 128"):
+        ops.flash_attention(*_attn_args(224, torch.float32))
+    with pytest.raises(ValueError, match="maximum of 256"):
+        ops.flash_attention(*_attn_args(272, torch.bfloat16))
