@@ -38,11 +38,18 @@ card, in phases:
    the wgmma route, which rounds p to bf16);
 6. their per-call times at the serving shapes, beside the plain versions,
    the bound, for attention the SIMT kernel at the same shape and
-   PyTorch's own SDPA as a yardstick;
+   PyTorch's own SDPA as a yardstick; then the decode-attention kernel
+   (K4) at the decode cells' layers (Mistral-NeMo-12B's and Zamba2-7B's,
+   B 32 over a 2048-slot bf16 cache at position 1279), checked against
+   its plain version at its tolerance derived from the inputs (faults of
+   one slot or a 16-row step planted must each fail it) and timed
+   (median of 20) beside its bound (the live K and V read once), the
+   plain version and SDPA with the boolean mask;
 7. Mistral-NeMo-12B served at full width and depth (random bf16 weights
    from a seed): 4 prompts of 2048 tokens, then 32 greedy decode steps
    through ``greedy_generate``; every flash-attention launch of it must
-   take the wgmma route. Prefill and decode are timed apart; one prefill
+   take the wgmma route, and every decode step must launch K4 once a
+   layer. Prefill and decode are timed apart; one prefill
    is broken down by kernel (``torch.profiler``) and one decode step timed
    on the card alone (CUDA-graph replay). Then the same model at fp32 with
    2 layers, cuda against cpu, logits within 1e-3; and at bf16 with 2
@@ -82,7 +89,8 @@ card, in phases:
    1500 stub frames, a 64-token decoder prompt), InternVL2-76B (24 of 80
    layers, 256 stub vision embeddings + 1792 text tokens). Every prefill
    launches exactly the kernels its layers call, every bf16 attention
-   launch on the wgmma route; then a cuda-vs-cpu check at fp32 (2 layers,
+   launch on the wgmma route, and every decode step K4 once a cached
+   self-attention; then a cuda-vs-cpu check at fp32 (2 layers,
    Whisper 2 + 2, Zamba2 7 for one application and a tail, one 128-token
    request) or, for Kimi-K2 (68 GB at fp32), the served bf16 weights
    with fp32 activations on both devices (64 tokens, CPU_TOL), and in
@@ -94,7 +102,8 @@ card, in phases:
    tokens/s, 6*N*tokens TFLOP/s against the dense bf16 peak, peak memory,
    one step by kernel; no attention or scan kernel may launch. The trained
    model is then served (greedy_generate: its prefill launches the
-   attention kernel 32 times, all on the wgmma route), and 2 steps are
+   attention kernel 32 times, all on the wgmma route, and each decode
+   step K4 32 times), and 2 steps are
    taken with int8 optimizer state (its bytes printed against fp32's).
    Then every one of the 10 reduced architectures (fp32) takes one train
    step on the card and on the CPU from the same weights and batch (loss,
@@ -148,6 +157,7 @@ import hashlib
 import json
 import os
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -220,24 +230,31 @@ FAMILY_ATTN = (
 )
 #: ... and zamba2-7b's Mamba-2 prefill as a Mamba-1 scan (B, L, Di, N)
 FAMILY_SCAN = (4, 2048, 7168, 64)
+#: the decode cells' attention layers (B, Hq, Hkv, hd), over a bf16 cache
+#: of DECODE_SLOTS at DECODE_POS (mid-batch of decode-b32's 512 -> 2048)
+DECODE_ATTN = (("mistral-nemo-12b", (32, 32, 8, 128)),
+               ("zamba2-7b", (32, 32, 32, 224)))
+DECODE_SLOTS, DECODE_POS = 2048, 1279
 #: phases 11-15: the MoE, VLM, hybrid and audio families at full width,
 #: depth cut only where one card cannot hold the model (bf16 weights: 262,
 #: 1913 and 131 GiB whole for Mixtral, Kimi-K2 and InternVL2). Each entry:
-#: config, {kernel: launches in one prefill}, _serve's options (the depth,
-#: the traffic, and the cuda-vs-cpu check's config changes)
+#: config, {kernel: launches in one prefill}, _serve's options (the decode
+#: step's cached self-attentions, the depth, the traffic, and the
+#: cuda-vs-cpu check's config changes)
 FAMILY_PHASES = {
     11: ("mixtral-8x22b", {"fa": 8},
-         dict(layers={"n_layers": 8}, batch=2, prompt=6144)),
+         dict(attentions=8, layers={"n_layers": 8}, batch=2, prompt=6144)),
     12: ("kimi-k2-1t-a32b", {"fa": 2},
-         dict(layers={"n_layers": 2}, steps=16,
+         dict(attentions=2, layers={"n_layers": 2}, steps=16,
               check={"served": True, "prompt": 64})),
     13: ("zamba2-7b", {"fa": 13, "ms": 81},
          # 7 blocks keep one shared-attention application and a tail
-         dict(check={"n_layers": 7})),
+         dict(attentions=13, check={"n_layers": 7})),
+    # the decoder's 32 self-attentions (its cross-attentions have no mask)
     14: ("whisper-large-v3", {"fa": 96},
-         dict(prompt=64, check={"n_encoder_layers": 2})),
+         dict(attentions=32, prompt=64, check={"n_encoder_layers": 2})),
     15: ("internvl2-76b", {"fa": 24},
-         dict(layers={"n_layers": 24}, prompt=2048 - 256)),
+         dict(attentions=24, layers={"n_layers": 24}, prompt=2048 - 256)),
 }
 #: the golden traces of the beyond-paper layers (tests/test_golden.py)
 LAYER_KEYS = ("min-energy|cap|0", "min-energy|preempt-fire|0",
@@ -1141,6 +1158,94 @@ def _kernel_times(fa, ops, ref, p5, card, dev) -> dict:
                                ms_batch1=s_one, family_shapes=[family_scan])}
 
 
+def _time_cuda_median(fn, reps: int = 20) -> float:
+    """Milliseconds of one call on the card's timeline (CUDA events around
+    each of ``reps`` calls after a warm-up), the median. Each call is
+    queued behind a ~1 ms sleep kernel, so that the host's time to issue
+    it (~0.05 ms of Python) does not count as the card's."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times)
+
+
+def _worst_ratio(got, want, tol) -> float:
+    """The largest |got - want| / (atol + rtol |want|): above 1 fails."""
+    atol, rtol = tol
+    w = want.double()
+    err = (got.double() - w).abs()
+    return float(torch.where(err == 0, 0.0, err / (atol + rtol * w.abs()))
+                 .max())
+
+
+def _decode_attention_times(da, ops, ref, dev) -> list:
+    """Phase 6's end: K4 at the decode cells' layers against its plain
+    version (``da.tolerance``, derived from the inputs), with faults of
+    one slot planted in the kernel's arguments (the slot at ``pos``
+    dropped, one past it added) and of a 16-row step in the plain
+    version's mask, each of which must fail the same check; and its time
+    beside its bound (the live K and V, q and out, each read or written
+    once at HBM rate), the plain version's (``_gqa``, which casts the
+    whole cache to fp32) and SDPA's over the same boolean mask (a
+    yardstick only: the port never calls it)."""
+    rows = []
+    for name, (B, Hq, Hkv, hd) in DECODE_ATTN:
+        gen = torch.Generator(device=dev).manual_seed(9)
+        q = torch.randn((B, 1, Hq, hd), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((B, Hkv, DECODE_SLOTS, hd), generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+        pos = DECODE_POS
+        want = da.plain(q, k, v, pos)
+        tol = da.tolerance(q, k, v, pos)
+        got = ops.decode_attention(q, k, v, pos)
+        err = _close(got, want, tol, f"K4 {name}")
+        worst = _worst_ratio(got, want, tol)
+        kj = torch.arange(DECODE_SLOTS, device=dev)
+        faults = {"slot at pos dropped": ops.decode_attention(q, k, v,
+                                                              pos - 1),
+                  "slot past pos added": ops.decode_attention(q, k, v,
+                                                              pos + 1),
+                  "a 16-row step skipped": ref.gqa_ref(
+                      q, k, v, (kj <= pos) & ((kj < 640) | (kj >= 656)))}
+        caught = {f: _worst_ratio(g, want, tol) for f, g in faults.items()}
+        for f, r in caught.items():
+            _check(r > 1.0, f"K4 {name}: the fault '{f}' passes the check "
+                   f"(|err| / bound up to {r})")
+        del got, want, tol, faults
+        ms_ = _time_cuda_median(lambda: ops.decode_attention(q, k, v, pos))
+        valid = torch.arange(DECODE_SLOTS, device=dev) <= pos
+        plain = _time_cuda_median(lambda: ref.gqa_ref(q, k, v, valid))
+        qt = q.transpose(1, 2)
+        lib = _time_cuda_median(lambda: F.scaled_dot_product_attention(
+            qt, k, v, attn_mask=valid[None], enable_gqa=True))
+        nbytes = 2 * (2 * B * Hkv * (pos + 1) * hd + 2 * B * Hq * hd)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append(dict(name=name, shape=[B, Hq, Hkv, hd, DECODE_SLOTS],
+                         pos=pos, ms=ms_, plain_ms=plain, library_ms=lib,
+                         bound_ms=bound, bound_by="bytes", max_abs_err=err,
+                         worst_of_bound=worst, faults_of_bound=caught))
+        print(f"   decode_attention (K4) {name} B={B} Hq={Hq} Hkv={Hkv} "
+              f"hd={hd} S_max={DECODE_SLOTS} pos={pos} bf16: kernel "
+              f"{ms_:.6f}  plain {plain:.6f}  sdpa {lib:.6f}  bound "
+              f"{bound:.6f} (bytes)  kernel/bound {ms_ / bound:.2f}  "
+              f"plain/kernel {plain / ms_:.1f}  max abs err {err:.3e}, "
+              f"{worst:.3f} of its bound; planted faults "
+              + ", ".join(f"{f} {r:.2f}" for f, r in caught.items())
+              + " of it", flush=True)
+        del q, k, v
+    return rows
+
+
 def _bf16_attention_check(cfg, fa, ops, ref, dev) -> float:
     """Phase 7's end: a 2-layer, full-width bf16 prefill of one serving-length
     prompt as the package runs it, then again with ``ops.flash_attention``
@@ -1195,15 +1300,17 @@ def _free():
 
 
 def _serve(arch: str, per_prefill: dict, counters, dev, phase: int, *,
-           layers=None, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
-           steps=SERVE_STEPS, check=None) -> dict:
+           attentions=0, layers=None, batch=SERVE_BATCH,
+           prompt=SERVE_PROMPT, steps=SERVE_STEPS, check=None) -> dict:
     """Phases 7, 8 and 11-15: serve one model at full width (depth cut to
     ``layers`` where one card cannot hold it), then hold the port on the
     card to the port on the CPU (:func:`_cpu_check`, with ``check``'s
     config changes). ``per_prefill`` maps each kernel module of the path to
     its launches in one prefill, which greedy_generate's run must show
-    exactly; every bf16 attention launch must take the wgmma route.
-    Returns the launch counts of greedy_generate's run, by kernel (and by
+    exactly; every bf16 attention launch must take the wgmma route; and
+    the decode-attention kernel (K4) must serve each of a decode step's
+    ``attentions`` cached self-attentions on every decode step. Returns
+    the launch counts of greedy_generate's run, by kernel (and by
     route for attention)."""
     from repro_torch.configs import get_config
     from repro_torch.models import model
@@ -1281,6 +1388,10 @@ def _serve(arch: str, per_prefill: dict, counters, dev, phase: int, *,
         if hasattr(kernel, "route_launches"):   # bf16 serving: all wgmma
             _check(kernel.route_launches["wgmma"] == kernel.launches,
                    f"{arch}: attention launches by route {by_route}")
+    _check(launches["decode_attention"] == attentions * steps,
+           f"{arch}: greedy_generate's {steps} decode steps launched the "
+           f"decode-attention kernel {launches['decode_attention']} times, "
+           f"not once for each of {attentions} attentions a step")
     _check(tuple(out.shape) == (B, steps + 1) and out.dtype == torch.int32
            and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
            f"{arch}: generated tokens")
@@ -1535,7 +1646,8 @@ def _train_smollm(counters, fa, ms, dev, card) -> dict:
     served["by_route"] = {"flash_attention": dict(fa.route_launches)}
     _check(fa.launches == cfg.n_layers
            and fa.route_launches["wgmma"] == cfg.n_layers
-           and ms.launches == 0,
+           and ms.launches == 0
+           and served["decode_attention"] == cfg.n_layers * (n - 1),
            f"{TRAIN_ARCH}: serving the trained model launched {served}")
     _check(tuple(out.shape) == (B, n) and bool(
         ((out >= 0) & (out < cfg.vocab_size)).all()),
@@ -2093,13 +2205,14 @@ def main() -> int:
     from repro_torch.core.gbdt import GBDTParams
     from repro_torch.core.policies import POLICY_NAMES
     from repro_torch.kernels import build, gbdt_predict as gp
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa, mamba_scan as ms
     from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    counters = (gp, fa, ms)
+    counters = (gp, fa, ms, da)
     card = _card_line()
     print(f"== phase 0: card {card}; torch {torch.__version__} "
           f"(CUDA {torch.version.cuda}); "
@@ -2324,10 +2437,12 @@ def main() -> int:
 
     p5 = _kernels_vs_plain(dev, fa, ops, ref)
     times = _kernel_times(fa, ops, ref, p5, card, dev)
+    decode_times = _decode_attention_times(da, ops, ref, dev)
     attn_err, scan_err = p5["attn_err"], p5["scan_err"]
     del p5
     from repro_torch.configs import get_config
-    served = {7: _serve("mistral-nemo-12b", {fa: 40}, counters, dev, 7)}
+    served = {7: _serve("mistral-nemo-12b", {fa: 40}, counters, dev, 7,
+                        attentions=40)}
     _bf16_attention_check(get_config("mistral-nemo-12b"), fa, ops, ref, dev)
     served[8] = _serve("falcon-mamba-7b", {ms: 64}, counters, dev, 8)
     layers = _layers(core, gp, ops, ref, counters, apps, tb, preds, feats,
@@ -2422,6 +2537,14 @@ def main() -> int:
     rows[1]["launches_by_route_by_phase"] = {
         str(ph): got["by_route"]["flash_attention"]
         for ph, got in served.items() if got["flash_attention"]}
+    rows.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": None,   # the reference's decode attention is einsums
+        "launches": served[7]["decode_attention"],
+        "launches_by_phase": {str(ph): got["decode_attention"]
+                              for ph, got in served.items()},
+        "cell_shapes": decode_times})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,22 +15,29 @@ the kernels: nothing is padded here.
   :func:`repro_torch.kernels.flash_attention.route` chooses.
 * :func:`mamba_scan` takes fp32 inputs and returns ``(y, h_last)``, the
   final state written by the kernel from the state it carries.
+* :func:`decode_attention` takes one new token's q in the model layout
+  and a layer's KV cache as ``attention_decode`` holds it, in fp32 or
+  bf16, and attends the decode mask's live slots only; ``pos`` may be a
+  0-d int64 tensor on the card, which the kernel reads there.
 
 The attention and scan kernels are forward-only, like the reference's: an
 input that requires grad raises rather than being silently detached.
 """
 from __future__ import annotations
 
+import numbers
+
 import numpy as np
 import torch
 
+from . import decode_attention as _da
 from . import flash_attention as _fa
 from . import gbdt_predict as _gp
 from . import mamba_scan as _ms
 from .ref import flash_attention_ref, gbdt_predict_ref, mamba_scan_ref
 
-__all__ = ["flash_attention", "gbdt_predict", "gbdt_predict_model",
-           "mamba_scan"]
+__all__ = ["decode_attention", "flash_attention", "gbdt_predict",
+           "gbdt_predict_model", "mamba_scan"]
 
 
 def _check(name: str, t, dtype: torch.dtype, ndim: int,
@@ -202,3 +209,73 @@ def mamba_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     h_last = torch.empty((B, Di, N), dtype=f32, device=dev)
     _ms.launch(u, dt, A, Bm, Cm, D, y, h_last)
     return y, h_last
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos, window=None) -> torch.Tensor:
+    """One new token's GQA attention over a layer's KV cache.
+
+    q: (B, 1, Hq, hd); k, v: the cache, (B, Hkv, S_max, hd); one dtype
+    (float32 or bfloat16), one device, contiguous, each starting on a
+    16-byte boundary; ``Hq % Hkv == 0`` with at most
+    :data:`~repro_torch.kernels.decode_attention.MAX_GROUP` query heads a
+    KV head; ``hd`` a multiple of 16 up to
+    256. ``pos``: the position being decoded, an int in ``[0, S_max)``
+    (any int >= 0 on a ring), or a 0-d int64 tensor on q's device, which
+    the kernel reads there (a CUDA graph's position buffer). ``window``:
+    None or a positive int; a cache of at most ``window`` slots is a
+    ring. Attends the slots of
+    :func:`repro_torch.kernels.decode_attention.live_range` with the
+    plain path's numerics. Returns (B, 1, Hq*hd) in q's dtype."""
+    dev = _device_of("q", q)
+    dtype = q.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be torch.float32 or torch.bfloat16, got "
+                        f"{dtype}")
+    _check("q", q, dtype, 4, dev, anchor="q")
+    _check("k", k, dtype, 4, dev, anchor="q")
+    _check("v", v, dtype, 4, dev, anchor="q")
+    _forward_only(q=q, k=k, v=v)
+    B, one, Hq, hd = q.shape
+    Hkv, S_max = k.shape[1], k.shape[2]
+    if one != 1:
+        raise ValueError(f"q must hold one token, (B, 1, Hq, hd), got shape "
+                         f"{tuple(q.shape)}")
+    if tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"v shape {tuple(v.shape)} != k shape "
+                         f"{tuple(k.shape)}")
+    if k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"k shape {tuple(k.shape)} does not match q shape "
+                         f"{tuple(q.shape)} in batch or head dim")
+    _positive(B=B, Hq=Hq, Hkv=Hkv, S_max=S_max)
+    if Hq % Hkv:
+        raise ValueError(f"{Hq} query heads are not a multiple of {Hkv} "
+                         "kv heads")
+    if Hq // Hkv > _da.MAX_GROUP:
+        raise ValueError(f"{Hq // Hkv} query heads a kv head: the kernel "
+                         f"takes at most {_da.MAX_GROUP}")
+    if hd % 16 or not 16 <= hd <= _da.MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} is not a multiple of 16 in [16, "
+                         f"{_da.MAX_HEAD_DIM}]")
+    if window is not None and (isinstance(window, bool)
+                               or not isinstance(window, int) or window < 1):
+        raise ValueError(f"window must be None or a positive int, got "
+                         f"{window!r}")
+    if isinstance(pos, torch.Tensor):
+        if pos.dim() != 0 or pos.dtype != torch.int64 or pos.device != dev:
+            raise ValueError(f"a tensor pos must be 0-d int64 on {dev}, got "
+                             f"{pos.dtype} of shape {tuple(pos.shape)} on "
+                             f"{pos.device}")
+    elif isinstance(pos, bool) or not isinstance(pos, numbers.Integral) or \
+            pos < 0 or (pos >= S_max and not _da.is_ring(S_max, window)):
+        raise ValueError(f"pos must be an int in [0, {S_max}) (any int >= 0 "
+                         f"on a ring), got {pos!r}")
+    else:
+        pos = int(pos)
+    if dev.type == "cpu":
+        return _da.plain(q, k, v, pos, window)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start on a 16-byte boundary")
+    out = torch.empty((B, 1, Hq * hd), dtype=dtype, device=dev)
+    _da.launch(q, k, v, pos, window, out)
+    return out

@@ -16,6 +16,10 @@ the per-row crossover measurement.
 versions of the CUDA attention and selective-scan kernels, the same math
 in fp32 written as whole-tensor torch ops. Their summation orders differ
 from the kernels', so the two agree to a tolerance, not bit for bit.
+
+:func:`gqa_ref` is the model's plain attention over a key mask (the
+reference's ``_sdpa``), and with the decode mask the plain version of the
+decode-attention kernel (:mod:`repro_torch.kernels.decode_attention`).
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ import numpy as np
 import torch
 
 __all__ = ["LaneSchedule", "NEG_INF", "flash_attention_ref",
-           "gbdt_predict_numpy", "gbdt_predict_ref", "lane_schedule",
+           "gbdt_predict_numpy", "gbdt_predict_ref", "gqa_ref",
+           "lane_schedule",
            "lane_sum", "mamba_scan_ref", "pairwise_program"]
 
 #: The reference's mask value: large and negative, finite in fp32 and bf16.
@@ -214,6 +219,29 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = (p @ vf) / l
     return out.reshape(B, Hq, Sq, hd).to(q.dtype)
+
+
+def gqa_ref(q, k, v, valid=None):
+    """q (B, S, Hq, hd) over k/v (B, Hkv, Sk, hd), as the reference's
+    ``_sdpa``: products of the q-dtype values summed in fp32 (its einsums
+    with preferred_element_type=float32), probabilities rounded to q's
+    dtype. ``valid`` masks keys: (Sk,) for every query alike, or (S, Sk)
+    per query. Returns (B, S, Hq*hd) in q's dtype."""
+    B, S, Hq, hd = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    G = Hq // K
+    # a KV head's G query heads and S rows as one (G*S, hd) block
+    qg = q.reshape(B, S, K, G, hd).permute(0, 2, 3, 1, 4).reshape(
+        B, K, G * S, hd).float()
+    kf = k.to(q.dtype).float()
+    vf = v.to(q.dtype).float()
+    scores = (qg @ kf.transpose(-1, -2)) / math.sqrt(hd)     # (B,K,G*S,Sk)
+    if valid is not None:
+        scores = torch.where(valid, scores.view(B, K, G, S, Sk),
+                             NEG_INF).view(B, K, G * S, Sk)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype).float()
+    out = (probs @ vf).to(q.dtype).reshape(B, K, G, S, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq * hd)
 
 
 def mamba_scan_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -20,7 +20,11 @@ chosen by the ``impl`` argument alone:
   and for cross-attention, and :func:`_sdpa_chunked` for a causal
   sequence of at least 8192 positions in whole 2048-position chunks.
 
-Single-token decode is plain torch, as in the reference: no kernel there.
+Single-token decode (:func:`attention_decode`) over a plain CUDA cache
+with no mesh launches the decode-attention kernel
+(:func:`repro_torch.kernels.ops.decode_attention`), which reads the live
+slots only; elsewhere (the CPU, a mesh) it is the plain path with the
+decode mask, as in the reference.
 
 Under a mesh the plain path runs on local shards in one of two layouts.
 Key-parallel (the default, and decode's): q whole on every ``model``
@@ -40,7 +44,8 @@ from torch import nn
 
 from .. import obs
 from ..kernels import ops as kops
-from ..kernels.ref import NEG_INF
+from ..kernels.decode_attention import is_ring, live_range
+from ..kernels.ref import NEG_INF, gqa_ref as _gqa
 from .common import (FSDP, TP, P, apply_rope, assign, check_impl,
                      current_mesh, dense_init, dtype_of, matmul,
                      maybe_shard, param, residual, shard_map, split_spec)
@@ -305,26 +310,6 @@ def _plain_gqa(q, k, v, valid=None, rows=None):
     return _gqa(q, k, v, valid)
 
 
-def _gqa(q, k, v, valid=None):
-    """:func:`_plain_gqa` on plain tensors (a device's whole problem, or
-    its shard of queries)."""
-    B, S, Hq, hd = q.shape
-    K, Sk = k.shape[1], k.shape[2]
-    G = Hq // K
-    # a KV head's G query heads and S rows as one (G*S, hd) block
-    qg = q.reshape(B, S, K, G, hd).permute(0, 2, 3, 1, 4).reshape(
-        B, K, G * S, hd).float()
-    kf = k.to(q.dtype).float()
-    vf = v.to(q.dtype).float()
-    scores = (qg @ kf.transpose(-1, -2)) / math.sqrt(hd)     # (B,K,G*S,Sk)
-    if valid is not None:
-        scores = torch.where(valid, scores.view(B, K, G, S, Sk),
-                             NEG_INF).view(B, K, G * S, Sk)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype).float()
-    out = (probs @ vf).to(q.dtype).reshape(B, K, G, S, hd)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq * hd)
-
-
 def _query_parallel_gqa(q, k, v, valid=None):
     """:func:`_plain_gqa` under a mesh with q's rows split over ``model``:
     k and v are gathered whole over ``model`` and each rank attends its
@@ -399,15 +384,16 @@ def attention_decode(p: Attention, x, cache_k, cache_v, pos, cfg):
     (out (B, 1, D), cache_k, cache_v).
 
     ``pos`` is a Python int, or a 0-d int64 tensor on x's device: then
-    the positions, the cache slot (``index_copy_``) and the mask read the
-    tensor, so that a CUDA graph captured around the step
+    the positions, the cache slot (``index_copy_``) and the attention
+    read the tensor, so that a CUDA graph captured around the step
     (:func:`repro_torch.train.serve.make_serve_step`) takes each replay's
     position from it. The products, dtypes and mask are the int route's.
 
-    With an int ``pos`` this counts ``attention.positions_attended`` and
-    ``attention.positions_live`` (:func:`count_positions`); with a tensor
-    it counts nothing (reading it would wait for the device), and the
-    caller counts."""
+    The attention goes through the decode-attention kernel where
+    :func:`uses_decode_kernel` says so, else through :func:`_plain_gqa`
+    with :func:`decode_mask`. With an int ``pos`` this counts
+    (:func:`count_positions`); with a tensor it counts nothing (reading it
+    would wait for the device), and the caller counts."""
     B = x.shape[0]
     on_device = isinstance(pos, torch.Tensor)
     if on_device:
@@ -417,8 +403,7 @@ def attention_decode(p: Attention, x, cache_k, cache_v, pos, cfg):
                                device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
     S_max = cache_k.shape[2]
-    ring = cfg.sliding_window is not None and S_max <= cfg.sliding_window
-    write_idx = pos % S_max if ring else pos
+    write_idx = pos % S_max if is_ring(S_max, cfg.sliding_window) else pos
     with obs.span("attention.cache_write"):
         if on_device:
             idx = write_idx.view(1)
@@ -428,35 +413,58 @@ def attention_decode(p: Attention, x, cache_k, cache_v, pos, cfg):
             slot = (slice(None), slice(None), write_idx)
             assign(cache_k, slot, k[:, 0].to(cache_k.dtype))
             assign(cache_v, slot, v[:, 0].to(cache_v.dtype))
+    kernel = uses_decode_kernel(cache_k)
     if obs.on and not on_device:
-        count_positions(B, S_max, pos, cfg.sliding_window)
+        count_positions(B, S_max, pos, cfg.sliding_window, kernel=kernel)
     with obs.span("attention.attend"):
-        kj = torch.arange(S_max, device=x.device)
-        if ring:
-            # warmup, then all slots live
-            valid = (kj <= pos) | (pos >= S_max)
+        if kernel:
+            # the cache in q's dtype, as the plain path reads it: no copy
+            # where they agree (served models); an fp32 model over a bf16
+            # cache reads a widened copy
+            out = kops.decode_attention(q, cache_k.to(q.dtype),
+                                        cache_v.to(q.dtype), pos,
+                                        cfg.sliding_window)
         else:
-            valid = kj <= pos
-            if cfg.sliding_window is not None:
-                valid = valid & (kj > pos - cfg.sliding_window)
-        out = _plain_gqa(q, cache_k, cache_v, valid)
+            out = _plain_gqa(q, cache_k, cache_v,
+                             decode_mask(pos, S_max, cfg.sliding_window,
+                                         x.device))
     with obs.span("attention.out"):
         return residual(matmul(out, p.wo.to(x.dtype))), cache_k, cache_v
 
 
-def live_positions(pos: int, S_max: int, window=None) -> int:
-    """How many of a decode step's ``S_max`` cache slots its mask keeps
-    at position ``pos``: those up to ``pos``, within the window when set
-    (a window-sized ring: every slot once full)."""
-    return min(pos + 1, S_max, window if window is not None else S_max)
+def uses_decode_kernel(cache) -> bool:
+    """Whether :func:`attention_decode` over ``cache`` (a layer's, or a
+    stack of them) launches the decode-attention kernel: a plain CUDA
+    tensor and no mesh."""
+    return (type(cache) is torch.Tensor and cache.is_cuda
+            and current_mesh() is None)
+
+
+def decode_mask(pos, S_max: int, window=None, device=None):
+    """(S_max,) boolean: the cache slots a decode step at ``pos`` (an int
+    or a 0-d tensor) attends; :func:`live_range` in a mask."""
+    kj = torch.arange(S_max, device=device)
+    if is_ring(S_max, window):
+        # warmup, then all slots live
+        return (kj <= pos) | (pos >= S_max)
+    valid = kj <= pos
+    if window is not None:
+        valid = valid & (kj > pos - window)
+    return valid
 
 
 def count_positions(B: int, S_max: int, pos: int, window=None,
-                    layers: int = 1) -> None:
+                    layers: int = 1, kernel: bool = False) -> None:
     """Count ``layers`` decode attentions of ``B`` sequences over ``S_max``
     cache slots at position ``pos``: ``attention.positions_attended``
-    (every slot read, a sequence each) and ``attention.positions_live``
-    (those the mask keeps, :func:`live_positions`)."""
-    obs.count("attention.positions_attended", layers * B * S_max)
-    obs.count("attention.positions_live",
-              layers * B * live_positions(pos, S_max, window))
+    (the slots read, a sequence each: every slot on the plain path, the
+    live ones through the kernel) and ``attention.positions_live`` (those
+    the mask keeps, :func:`live_range`); through the kernel
+    (``kernel``), ``attention.decode_kernel`` (one an attention)."""
+    lo, hi = live_range(pos, S_max, window)
+    live = layers * B * (hi - lo)
+    obs.count("attention.positions_attended",
+              live if kernel else layers * B * S_max)
+    obs.count("attention.positions_live", live)
+    if kernel:
+        obs.count("attention.decode_kernel", layers)

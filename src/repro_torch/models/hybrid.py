@@ -384,11 +384,14 @@ GRAPH_RECAPTURES = True
 
 def count_decode_step(cfg, cache, pos: int) -> None:
     """What one decode step at ``pos`` counts: the applications'
-    attention positions (:func:`attention.count_positions`) and the conv
-    and SSM state it reads and writes (``mamba.state_bytes``)."""
+    attention positions (:func:`attention.count_positions`, on the
+    route the step takes) and the conv and SSM state it reads and writes
+    (``mamba.state_bytes``)."""
     if "attn_k" in cache:
         n, B, _, S_max, _ = cache["attn_k"].shape
-        attn_mod.count_positions(B, S_max, pos, cfg.sliding_window, n)
+        attn_mod.count_positions(
+            B, S_max, pos, cfg.sliding_window, n,
+            kernel=attn_mod.uses_decode_kernel(cache["attn_k"]))
     obs.count("mamba.state_bytes",
               2 * (cache["conv"].nbytes + cache["ssm"].nbytes))
 

@@ -206,10 +206,13 @@ GRAPH_DECODE_FAMILIES = ("dense",)
 
 def count_decode_step(cfg, cache, pos: int) -> None:
     """The position counters of one decode step's attentions over each
-    stack of ``cache`` (:func:`attention.count_positions`)."""
+    stack of ``cache`` (:func:`attention.count_positions`), on the route
+    the step takes (:func:`attention.uses_decode_kernel`)."""
     for stack in cache.values():
         n, B, _, S_max, _ = stack["k"].shape
-        attn_mod.count_positions(B, S_max, pos, cfg.sliding_window, n)
+        attn_mod.count_positions(
+            B, S_max, pos, cfg.sliding_window, n,
+            kernel=attn_mod.uses_decode_kernel(stack["k"]))
 
 
 def decode_step(params: TransformerLM, cache, tokens, pos, cfg):
