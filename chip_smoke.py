@@ -52,9 +52,10 @@ card, in phases:
    layer. Prefill and decode are timed apart; one prefill
    is broken down by kernel (``torch.profiler``) and one decode step timed
    on the card alone (CUDA-graph replay). Then the same model at fp32 with
-   2 layers, cuda against cpu, logits within 1e-3; and at bf16 with 2
-   layers, a prefill through the kernel against one through the plain
-   attention (logits within 2**-4, the same next tokens);
+   2 layers, cuda against cpu, logits within 1e-3 (an fp32 decode takes
+   the plain attention on both devices: K4 takes bf16 alone); and at
+   bf16 with 2 layers, a prefill through the kernel against one through
+   the plain attention (logits within 2**-4, the same next tokens);
 8. Falcon-Mamba-7B, the same way (without the bf16 attention check);
 9. the beyond-paper scheduler layers at full size, on the card and on the
    CPU, records equal field for field (provenance fields included): the
@@ -93,8 +94,9 @@ card, in phases:
    self-attention; then a cuda-vs-cpu check at fp32 (2 layers,
    Whisper 2 + 2, Zamba2 7 for one application and a tail, one 128-token
    request) or, for Kimi-K2 (68 GB at fp32), the served bf16 weights
-   with fp32 activations on both devices (64 tokens, CPU_TOL), and in
-   bf16 as served, printed only (routing flips at 384 experts).
+   with fp32 activations on both devices (64 tokens, CPU_TOL; their
+   decodes take the plain attention on both), and in bf16 as served,
+   printed only (routing flips at 384 experts).
 16. training: SmolLM-360M at full width and depth (361 821 120 bf16
    params, remat "full", AdamW with fp32 state) on SyntheticLM batches of
    16 x 4096 tokens in 8 microbatches of 2 (train_4k's global batch of 256
@@ -1465,7 +1467,9 @@ def _cpu_check(cfg, dev, served=None, prompt: int = 128,
     layers (or ``changes``), full width; or, given the ``served`` model
     (for Kimi-K2, whose MoE layer is 68 GB at fp32), its bf16 weights
     copied to the CPU as they are and run with fp32 activations on both
-    devices (each product casts its weight exactly). The served model is
+    devices (each product casts its weight exactly). Either way the
+    decode's attention is the plain path on both devices (K4 takes bf16
+    alone). The served model is
     then also compared in bf16 as served: a bf16 router input one ulp
     apart can move a token's 8th of 384 experts, which moves its logits by
     O(1), so the routing of each device is the witness

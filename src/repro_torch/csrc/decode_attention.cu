@@ -1,5 +1,5 @@
 // Single-token GQA decode attention over a layer's KV cache for Hopper
-// (sm_90a), bf16 or fp32 in, fp32 sums, output in the input dtype: K4.
+// (sm_90a), bf16 in, fp32 sums, bf16 out: K4.
 //
 // Replaces no TPU kernel: the reference's decode attention is plain
 // einsums (src/repro/models/attention.py, _sdpa over the cache). It was
@@ -17,12 +17,13 @@
 // arithmetic as repro_torch/kernels/decode_attention.py::live_range):
 // [max(0, pos - window + 1), pos] with a window, [0, pos] without one,
 // and on a ring (S_max <= window) every slot once pos >= S_max. bf()
-// rounds the normalised probability to the input dtype (a no-op for
-// fp32), as the plain path does (kernels/ref.py::gqa_ref): the products
-// of the cache's values are exact in fp32, the sums are fp32, and the
-// output is rounded once. pos is a host integer or, for a CUDA graph that
-// replays the step, an int64 read on the card: the grid depends on shapes
-// alone, and only live slots are read.
+// rounds the normalised probability to bf16, as the plain path does
+// (kernels/ref.py::gqa_ref): the products of the cache's values are exact
+// in fp32, the sums are fp32, and the output is rounded once. bf16 is the
+// served dtype; an fp32 model's decode takes the plain path
+// (models/attention.py::uses_decode_kernel). pos is a host integer or,
+// for a CUDA graph that replays the step, an int64 read on the card: the
+// grid depends on shapes alone, and only live slots are read.
 //
 // What bounds it. Bytes: each live K and V row is read once, at ~G
 // multiply-adds a byte (G = Hq / Hkv, 1 to 8), far under the card's ~295
@@ -56,8 +57,8 @@
 //   the cluster exchanges the softmax's max and sum. A tile's rows are
 //   padded by 16 bytes, so that ldmatrix's eight rows fall in eight bank
 //   groups.
-// * bf16 (the served dtype): both products on the tensor cores, mma.sync
-//   m16n8k16 with fp32 accumulators (bf16 products are exact in fp32).
+// * Both products on the tensor cores, mma.sync m16n8k16 with fp32
+//   accumulators (bf16 products are exact in fp32).
 //   q.K^T: K rows are A (16 rows a warp step, ldmatrix), the block's
 //   query heads are B's 8 columns (from registers). p.V: p (the block's
 //   heads, padded to 16 rows) is A, V's rows are B (ldmatrix.trans); each
@@ -65,11 +66,8 @@
 //   products on the fp32 pipes, a lane per 8 elements of a row, and took
 //   3.2x the bytes' bound at Mistral-NeMo's shape (this design 1.45x):
 //   its shuffles and per-head guards cost more instructions than the
-//   bytes allow.
-// * fp32 (test models and checks only): the products on the fp32 pipes, a
-//   row's hd over kLanes lanes (the next power of two of hd / 8; the
-//   template parameter that hd sets), 8 elements a lane, scores summed by
-//   a shuffle butterfly, p.V summed over the row groups in a fixed order.
+//   bytes allow. The one template parameter, kKSteps, is the number of
+//   16-wide k-steps of q.K^T (the next power of two of hd / 16).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -89,41 +87,10 @@ constexpr int kStageBytes = 9216;  // one tile of K or V rows
 constexpr int kStages = 4;         // tiles in the ring, kStages - 1 in flight
 constexpr int kPad = 16;           // bytes after each row of a tile
 constexpr unsigned kFull = 0xffffffffu;
-// the fp32 path's row-group partial outputs reuse the drained ring
-static_assert(kThreads * 8 * kMaxHeads * 4 <= kStages * kStageBytes,
-              "the ring holds the partial outputs");
 
-// 8 consecutive elements of T: one 16-byte word for bf16, two for fp32.
-template <typename T>
-struct Row8 {
-  static constexpr int kWords = sizeof(T) / 2;
-  uint4 w[kWords];
-};
-
-template <typename T>
-__device__ __forceinline__ Row8<T> load8(const void* p) {
-  Row8<T> r;
-#pragma unroll
-  for (int i = 0; i < Row8<T>::kWords; ++i)
-    r.w[i] = *(reinterpret_cast<const uint4*>(p) + i);
-  return r;
-}
-
-__device__ __forceinline__ void widen(const Row8<float>& r, float (&x)[8]) {
-  const unsigned* u = reinterpret_cast<const unsigned*>(r.w);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) x[e] = __uint_as_float(u[e]);
-}
-
-// x rounded to T (round to nearest even) and back.
-__device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
+// x rounded to bf16 (round to nearest even) and back.
+__device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
 }
 
 // 16 bytes from global to shared memory; zeros where `bytes` is 0.
@@ -192,21 +159,19 @@ __device__ __forceinline__ void live_range(long long pos, int S_max,
   hi = static_cast<int>(h);
 }
 
-// A tile's row stride and rows: as many padded rows as kStageBytes holds,
-// a multiple of 16 for the tensor cores' 16-row steps.
-__host__ __device__ __forceinline__ int tile_ld(int hd, int size) {
-  return hd * size + kPad;
+// A tile's row stride in bytes and rows: as many padded rows as
+// kStageBytes holds, a multiple of 16 for the tensor cores' 16-row steps.
+__device__ __forceinline__ int tile_ld(int hd) {
+  return hd * 2 + kPad;
 }
-__host__ __device__ __forceinline__ int tile_rows(int hd, int size) {
-  const int rows = kStageBytes / tile_ld(hd, size);
-  return size == 2 ? rows / 16 * 16 : rows;
+__device__ __forceinline__ int tile_rows(int hd) {
+  return kStageBytes / tile_ld(hd) / 16 * 16;
 }
 
-// Shared memory: the ring of K and V tiles (kStages x kStageBytes; the
-// fp32 path's row-group partial outputs once drained); then, in floats,
-// the slice's scores [G][cap] unless they are in the scratch (`spill`),
-// the block's partial output [G][hd] (which the cluster reads), its max
-// and sum of exps [2][kMaxHeads].
+// Shared memory: the ring of K and V tiles (kStages x kStageBytes); then,
+// in floats, the slice's scores [G][cap] unless they are in the scratch
+// (`spill`), the block's partial output [G][hd] (which the cluster
+// reads), its max and sum of exps [2][kMaxHeads].
 __host__ __device__ __forceinline__ size_t smem_bytes(int G, int cap, int hd,
                                                       bool spill) {
   return static_cast<size_t>(kStages) * kStageBytes
@@ -218,17 +183,16 @@ __host__ __device__ __forceinline__ int slice_cap(int S_max, int splits) {
   return (S_max + splits - 1) / splits;
 }
 
-template <typename T, int kLanes>
+template <int kKSteps>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ out,
+decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        __nv_bfloat16* __restrict__ out,
                         const long long* __restrict__ pos_dev,
                         long long pos_host, int Hkv, int G, int S_max,
                         int hd, int window, float scale, int cap,
                         float* scratch) {
-  constexpr bool kTensor = sizeof(T) == 2;        // bf16: mma.sync
-  constexpr int kRowGroups = kThreads / kLanes;   // fp32: rows a step
-  constexpr int kKSteps = kLanes / 2;             // 16-wide steps of hd
   constexpr int kPairs = (kKSteps + kWarps - 1) / kWarps;  // per warp
   extern __shared__ __align__(128) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -253,15 +217,13 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int share = (n + splits - 1) / splits;
   const int j0 = lo + min(rank * share, n);
   const int rows = min((rank + 1) * share, n) - min(rank * share, n);
-  const int ld = tile_ld(hd, sizeof(T));
-  const int tile = tile_rows(hd, sizeof(T));
+  const int ld = tile_ld(hd);
+  const int tile = tile_rows(hd);
   const int tiles = (rows + tile - 1) / tile;
-  const int row_chunks = hd * static_cast<int>(sizeof(T)) / 16;
+  const int row_chunks = hd * 2 / 16;
   const size_t slice = (static_cast<size_t>(bk) * S_max + j0) * hd;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int c = threadIdx.x % kLanes, rg = threadIdx.x / kLanes;
-  const bool lane_on = c * 8 < hd;
 
   // tile t of the slice's K tiles, then of its V tiles, into the ring
   // (rows past the slice, up to the tensor cores' next 16, as zeros); one
@@ -270,7 +232,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (t < 2 * tiles) {
       const int r0 = (t < tiles ? t : t - tiles) * tile;
       const int nr = min(tile, rows - r0);
-      const int fill = kTensor ? (nr + 15) / 16 * 16 : nr;
+      const int fill = (nr + 15) / 16 * 16;
       const unsigned char* src = reinterpret_cast<const unsigned char*>(
           (t < tiles ? k : v) + slice + static_cast<size_t>(r0) * hd);
       unsigned char* dst = ring + (t % kStages) * kStageBytes;
@@ -285,11 +247,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) issue(t);
 
-  // q: bf16, the B fragments of q.K^T (column g = query head g, two k
-  // values a register); fp32, this lane's 8 elements of each head
+  // q: the B fragments of q.K^T (column g = query head g, two k values a
+  // register)
   uint32_t qb[kKSteps][2];
-  float qr[kTensor ? 1 : kMaxHeads][8];
-  if constexpr (kTensor) {
+  {
     const int g = lane / 4;
 #pragma unroll
     for (int ks = 0; ks < kKSteps; ++ks) {
@@ -300,16 +261,6 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       qb[ks][0] = on ? qp[0] : 0u;
       qb[ks][1] = on ? qp[4] : 0u;                // d + 8
     }
-  } else {
-#pragma unroll
-    for (int g = 0; g < kMaxHeads; ++g) {
-      if (g < heads && lane_on) {
-        widen(load8<T>(q + (q_row + g) * hd + c * 8), qr[g]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) qr[g][e] = 0.f;
-      }
-    }
   }
 
   // 1. scores of the slice's rows, a tile at a time
@@ -319,57 +270,25 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     issue(t + kStages - 1);
     const unsigned char* tl = ring + (t % kStages) * kStageBytes;
     const int r0 = t * tile, nr = min(tile, rows - r0);
-    if constexpr (kTensor) {
-      // a warp's 16 rows at a time: c[0..1] rows lane / 4, heads
-      // 2 (lane % 4) + {0, 1}; c[2..3] the rows 8 further
-      for (int m0 = warp * 16; m0 < nr; m0 += kWarps * 16) {
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        const unsigned a0 = smem_addr(tl + (m0 + lane % 16) * ld
-                                      + (lane / 16) * 16);
+    // a warp's 16 rows at a time: c[0..1] rows lane / 4, heads
+    // 2 (lane % 4) + {0, 1}; c[2..3] the rows 8 further
+    for (int m0 = warp * 16; m0 < nr; m0 += kWarps * 16) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      const unsigned a0 = smem_addr(tl + (m0 + lane % 16) * ld
+                                    + (lane / 16) * 16);
 #pragma unroll
-        for (int ks = 0; ks < kKSteps; ++ks) {
-          if (ks * 16 < hd) {
-            uint32_t a[4];
-            ldmatrix_x4(a, a0 + ks * 32);
-            mma_bf16(acc, a, qb[ks][0], qb[ks][1]);
-          }
-        }
-        const int g = (lane % 4) * 2;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = m0 + lane / 4 + (i / 2) * 8, gi = g + i % 2;
-          if (r < nr && gi < heads) sc[gi * cap + r0 + r] = acc[i] * scale;
+      for (int ks = 0; ks < kKSteps; ++ks) {
+        if (ks * 16 < hd) {
+          uint32_t a[4];
+          ldmatrix_x4(a, a0 + ks * 32);
+          mma_bf16(acc, a, qb[ks][0], qb[ks][1]);
         }
       }
-    } else {
-      // (uniform over the block: every lane of a warp takes part in the
-      // shuffles)
-      for (int rb = 0; rb < nr; rb += kRowGroups) {
-        const int r = rb + rg;
-        float x[8];
-        if (r < nr && lane_on) {
-          widen(load8<T>(tl + r * ld + c * 32), x);
-        } else {
+      const int g = (lane % 4) * 2;
 #pragma unroll
-          for (int e = 0; e < 8; ++e) x[e] = 0.f;
-        }
-        float d[kMaxHeads];
-#pragma unroll
-        for (int g = 0; g < kMaxHeads; ++g) {
-          d[g] = 0.f;
-          if (g < heads) {
-#pragma unroll
-            for (int e = 0; e < 8; ++e) d[g] = fmaf(qr[g][e], x[e], d[g]);
-#pragma unroll
-            for (int o = kLanes / 2; o > 0; o >>= 1)
-              d[g] += __shfl_xor_sync(kFull, d[g], o);
-          }
-        }
-        if (c == 0 && r < nr) {
-#pragma unroll
-          for (int g = 0; g < kMaxHeads; ++g)
-            if (g < heads) sc[g * cap + r0 + r] = d[g] * scale;
-        }
+      for (int i = 0; i < 4; ++i) {
+        const int r = m0 + lane / 4 + (i / 2) * 8, gi = g + i % 2;
+        if (r < nr && gi < heads) sc[gi * cap + r0 + r] = acc[i] * scale;
       }
     }
   }
@@ -377,7 +296,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // 2. the softmax over the cluster, while the first V tiles load: the
   //    slices' max, then their sums of exps, each combined in rank order;
-  //    p normalised, then rounded to T
+  //    p normalised, then rounded to bf16
   for (int g = warp; g < heads; g += kWarps) {
     float m = -INFINITY;
     for (int i = lane; i < rows; i += 32) m = fmaxf(m, sc[g * cap + i]);
@@ -407,78 +326,58 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 0; r < splits; ++r)
       l += cluster.map_shared_rank(st, r)[kMaxHeads + g];
     for (int i = lane; i < rows; i += 32)
-      sc[g * cap + i] = round_to(sc[g * cap + i] / l, T());
+      sc[g * cap + i] = round_bf16(sc[g * cap + i] / l);
   }
 
-  // 3. p.V over the slice's rows. bf16: warp w owns the 16-column slices
-  //    w, w + 4, ... of every head's output; acc[j][h][0..1]: head
-  //    lane / 4, columns 16 (w + 4 j) + 8 h + 2 (lane % 4) + {0, 1}
-  //    (acc[j][h][2..3]: the padding heads). fp32: a lane's 8 columns of
-  //    every head over its rows.
-  float acc[kTensor ? kPairs : kMaxHeads][kTensor ? 2 : 1][kTensor ? 4 : 8];
+  // 3. p.V over the slice's rows: warp w owns the 16-column slices w,
+  //    w + 4, ... of every head's output; acc[j][h][0..1]: head lane / 4,
+  //    columns 16 (w + 4 j) + 8 h + 2 (lane % 4) + {0, 1} (acc[j][h][2..3]:
+  //    the padding heads)
+  float acc[kPairs][2][4];
 #pragma unroll
-  for (int j = 0; j < (kTensor ? kPairs : kMaxHeads); ++j)
+  for (int j = 0; j < kPairs; ++j)
 #pragma unroll
-    for (int h = 0; h < (kTensor ? 2 : 1); ++h)
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int e = 0; e < (kTensor ? 4 : 8); ++e) acc[j][h][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[j][h][e] = 0.f;
   for (int t = tiles; t < 2 * tiles; ++t) {
     cp_async_wait<kStages - 2>();
     __syncthreads();                  // (the first also publishes p)
     issue(t + kStages - 1);
     const unsigned char* tl = ring + (t % kStages) * kStageBytes;
     const int r0 = (t - tiles) * tile, nr = min(tile, rows - r0);
-    if constexpr (kTensor) {
-      const int g = lane / 4;
-      const float* pg = sc + g * cap + r0;
-      for (int k0 = 0; k0 < nr; k0 += 16) {
-        // A: p of head lane / 4 at rows k0 + 2 (lane % 4) + {0, 1} and
-        // 8 further; the padding heads 8..15 zero
-        const int kr = k0 + (lane % 4) * 2;
-        float p[4];
+    const int g = lane / 4;
+    const float* pg = sc + g * cap + r0;
+    for (int k0 = 0; k0 < nr; k0 += 16) {
+      // A: p of head lane / 4 at rows k0 + 2 (lane % 4) + {0, 1} and
+      // 8 further; the padding heads 8..15 zero
+      const int kr = k0 + (lane % 4) * 2;
+      float p[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = kr + (i / 2) * 8 + i % 2;
-          p[i] = g < heads && r < nr ? pg[r] : 0.f;
-        }
-        const uint32_t a[4] = {pack_bf16(p[0], p[1]), 0u,
-                               pack_bf16(p[2], p[3]), 0u};
-        const unsigned b0 = smem_addr(
-            tl + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * ld
-            + (lane / 16) * 16);
-#pragma unroll
-        for (int j = 0; j < kPairs; ++j) {
-          const int col = (warp + kWarps * j) * 16;
-          if (col < hd) {
-            uint32_t bv[4];
-            ldmatrix_x4_trans(bv, b0 + col * 2);
-            mma_bf16(acc[j][0], a, bv[0], bv[1]);
-            mma_bf16(acc[j][1], a, bv[2], bv[3]);
-          }
-        }
+      for (int i = 0; i < 4; ++i) {
+        const int r = kr + (i / 2) * 8 + i % 2;
+        p[i] = g < heads && r < nr ? pg[r] : 0.f;
       }
-    } else {
-      for (int rb = 0; rb < nr; rb += kRowGroups) {
-        const int r = rb + rg;
-        if (r < nr && lane_on) {
-          float x[8];
-          widen(load8<T>(tl + r * ld + c * 32), x);
+      const uint32_t a[4] = {pack_bf16(p[0], p[1]), 0u,
+                             pack_bf16(p[2], p[3]), 0u};
+      const unsigned b0 = smem_addr(
+          tl + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * ld
+          + (lane / 16) * 16);
 #pragma unroll
-          for (int g = 0; g < kMaxHeads; ++g) {
-            if (g < heads) {
-              const float p = sc[g * cap + r0 + r];
-#pragma unroll
-              for (int e = 0; e < 8; ++e)
-                acc[g][0][e] = fmaf(p, x[e], acc[g][0][e]);
-            }
-          }
+      for (int j = 0; j < kPairs; ++j) {
+        const int col = (warp + kWarps * j) * 16;
+        if (col < hd) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, b0 + col * 2);
+          mma_bf16(acc[j][0], a, bv[0], bv[1]);
+          mma_bf16(acc[j][1], a, bv[2], bv[3]);
         }
       }
     }
   }
   cp_async_wait<0>();
   __syncthreads();                    // the ring is drained and read
-  if constexpr (kTensor) {
+  {
     const int g = lane / 4;
     if (g < heads) {
 #pragma unroll
@@ -494,27 +393,6 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
     }
-  } else {
-    float* part_out = reinterpret_cast<float*>(ring);
-    constexpr int kRow = kLanes * 8;              // a row group's columns
-    if (lane_on) {
-#pragma unroll
-      for (int g = 0; g < kMaxHeads; ++g) {
-        if (g < heads) {
-          float* dst = part_out + (rg * G + g) * kRow + c * 8;
-#pragma unroll
-          for (int e = 0; e < 8; ++e) dst[e] = acc[g][0][e];
-        }
-      }
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < heads * hd; e += kThreads) {
-      const int g = e / hd, d = e - g * hd;
-      float s = 0.f;
-      for (int r = 0; r < kRowGroups; ++r)
-        s += part_out[(r * G + g) * kRow + d];
-      o_s[e] = s;
-    }
   }
   cluster.sync();
 
@@ -524,19 +402,19 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
        e += splits * kThreads) {
     float s = 0.f;
     for (int r = 0; r < splits; ++r) s += cluster.map_shared_rank(o_s, r)[e];
-    store(out + q_row * hd + e, s);
+    out[q_row * hd + e] = __float2bfloat16(s);
   }
   cluster.sync();                 // no block leaves while others read it
 }
 
 // Raises the kernel's dynamic shared-memory limit to `smem` where the
 // default (48 KB) or an earlier call's is lower.
-template <typename T, int kLanes>
+template <int kKSteps>
 cudaError_t allow_smem(size_t smem) {
   static size_t configured = 48 * 1024;
   if (smem <= configured) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      decode_attention_kernel<T, kLanes>,
+      decode_attention_kernel<kKSteps>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err == cudaSuccess) configured = smem;
   return err;
@@ -564,7 +442,7 @@ cudaLaunchConfig_t cluster_config(unsigned blocks, int splits, size_t smem,
 // clusters resident at once (a second wave costs each block's fixed
 // latency again: Mistral-NeMo's decode layer took 0.092 ms at 4 slices and
 // 0.070 at 2 on an H100).
-template <typename T, int kLanes>
+template <int kKSteps>
 int plan(int B, int Hkv, int G, int S_max, int hd, int* splits,
          long long* scratch_bytes) {
   int dev = 0, optin = 0;
@@ -582,14 +460,14 @@ int plan(int B, int Hkv, int G, int S_max, int hd, int* splits,
   if (spill) n = 1;
   while (n < kMaxSplits && S_max >= 128 * n) {
     const size_t smem = smem_bytes(G, slice_cap(S_max, 2 * n), hd, spill);
-    err = allow_smem<T, kLanes>(smem);
+    err = allow_smem<kKSteps>(smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaLaunchAttribute attr[1];
     const cudaLaunchConfig_t config =
         cluster_config(2 * n, 2 * n, smem, attr);
     int clusters = 0;
     err = cudaOccupancyMaxActiveClusters(
-        &clusters, decode_attention_kernel<T, kLanes>, &config);
+        &clusters, decode_attention_kernel<kKSteps>, &config);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (static_cast<long long>(B) * Hkv > clusters) break;
     n *= 2;
@@ -601,46 +479,41 @@ int plan(int B, int Hkv, int G, int S_max, int hd, int* splits,
   return 0;
 }
 
-template <typename T, int kLanes>
+template <int kKSteps>
 int launch(const void* q, const void* k, const void* v, void* out,
            const void* pos_dev, long long pos_host, int B, int Hkv, int G,
            int S_max, int hd, int window, int splits, float scale,
            void* scratch, cudaStream_t stream) {
   const int cap = slice_cap(S_max, splits);
   const size_t smem = smem_bytes(G, cap, hd, scratch != nullptr);
-  cudaError_t err = allow_smem<T, kLanes>(smem);
+  cudaError_t err = allow_smem<kKSteps>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t config = cluster_config(
       static_cast<unsigned>(B) * Hkv * splits, splits, smem, attr);
   config.stream = stream;
   err = cudaLaunchKernelEx(
-      &config, decode_attention_kernel<T, kLanes>, static_cast<const T*>(q),
-      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out),
+      &config, decode_attention_kernel<kKSteps>,
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(out),
       static_cast<const long long*>(pos_dev), pos_host, Hkv, G, S_max, hd,
       window, scale, cap, static_cast<float*>(scratch));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// f<T, kLanes>(args...) with kLanes the next power of two of hd / 8 (hd a
+// f<kKSteps>(args...) with kKSteps the next power of two of hd / 16 (hd a
 // multiple of 16 up to 256).
-#define DECODE_ATTENTION_DISPATCH(f, dtype, hd, ...)                       \
+#define DECODE_ATTENTION_DISPATCH(f, hd, ...)                              \
   do {                                                                     \
-    const int chunks_ = (hd) / 8;                                          \
-    if ((dtype) == 0) {                                                    \
-      if (chunks_ <= 2) return f<float, 2>(__VA_ARGS__);                   \
-      if (chunks_ <= 4) return f<float, 4>(__VA_ARGS__);                   \
-      if (chunks_ <= 8) return f<float, 8>(__VA_ARGS__);                   \
-      if (chunks_ <= 16) return f<float, 16>(__VA_ARGS__);                 \
-      if (chunks_ <= 32) return f<float, 32>(__VA_ARGS__);                 \
-    } else if ((dtype) == 1) {                                             \
-      if (chunks_ <= 2) return f<__nv_bfloat16, 2>(__VA_ARGS__);           \
-      if (chunks_ <= 4) return f<__nv_bfloat16, 4>(__VA_ARGS__);           \
-      if (chunks_ <= 8) return f<__nv_bfloat16, 8>(__VA_ARGS__);           \
-      if (chunks_ <= 16) return f<__nv_bfloat16, 16>(__VA_ARGS__);         \
-      if (chunks_ <= 32) return f<__nv_bfloat16, 32>(__VA_ARGS__);         \
-    }                                                                      \
+    const int steps_ = (hd) / 16;                                          \
+    if (steps_ <= 1) return f<1>(__VA_ARGS__);                             \
+    if (steps_ <= 2) return f<2>(__VA_ARGS__);                             \
+    if (steps_ <= 4) return f<4>(__VA_ARGS__);                             \
+    if (steps_ <= 8) return f<8>(__VA_ARGS__);                             \
+    if (steps_ <= 16) return f<16>(__VA_ARGS__);                           \
     return static_cast<int>(cudaErrorInvalidValue);                        \
   } while (0)
 
@@ -656,27 +529,26 @@ extern "C" {
 
 // The launch's cluster size (1 to 8) and the bytes of the scores' scratch
 // in device memory (0: they fit in shared memory) for these shapes on the
-// current device; dtype: 0 = float32, 1 = bfloat16. Returns 0 or a CUDA
-// error code.
-int decode_attention_plan(int dtype, int B, int Hkv, int G, int S_max,
-                          int hd, int* splits, long long* scratch_bytes) {
+// current device. Returns 0 or a CUDA error code.
+int decode_attention_plan(int B, int Hkv, int G, int S_max, int hd,
+                          int* splits, long long* scratch_bytes) {
   if (!valid_shape(B, Hkv, G, S_max, hd))
     return static_cast<int>(cudaErrorInvalidValue);
-  DECODE_ATTENTION_DISPATCH(plan, dtype, hd, B, Hkv, G, S_max, hd, splits,
+  DECODE_ATTENTION_DISPATCH(plan, hd, B, Hkv, G, S_max, hd, splits,
                             scratch_bytes);
 }
 
 // q (B, 1, Hkv*G, hd), k and v (B, Hkv, S_max, hd), out (B, 1, Hkv*G*hd),
-// contiguous, 16-byte aligned. dtype: 0 = float32, 1 = bfloat16. pos_dev:
-// an int64 on the card, or null to use pos_host. window <= 0: none.
+// bf16, contiguous, 16-byte aligned. pos_dev: an int64 on the card, or
+// null to use pos_host. window <= 0: none.
 // splits and scratch (null, or the scratch's bytes on the card) as
 // decode_attention_plan gives them; scale: the score scale. Launches on
 // `stream` and returns cudaGetLastError(): a launch the runtime refuses
 // never runs, and a later synchronize would not say so.
 int decode_attention_fwd(const void* q, const void* k, const void* v,
                          void* out, const void* pos_dev, long long pos_host,
-                         int dtype, int B, int Hkv, int G, int S_max, int hd,
-                         int window, int splits, float scale, void* scratch,
+                         int B, int Hkv, int G, int S_max, int hd, int window,
+                         int splits, float scale, void* scratch,
                          void* stream) {
   const auto bits = reinterpret_cast<unsigned long long>(q)
                     | reinterpret_cast<unsigned long long>(k)
@@ -685,7 +557,7 @@ int decode_attention_fwd(const void* q, const void* k, const void* v,
       || splits > kMaxSplits || (bits & 15ull) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  DECODE_ATTENTION_DISPATCH(launch, dtype, hd, q, k, v, out, pos_dev,
+  DECODE_ATTENTION_DISPATCH(launch, hd, q, k, v, out, pos_dev,
                             pos_host, B, Hkv, G, S_max, hd, window, splits,
                             scale, scratch,
                             static_cast<cudaStream_t>(stream));

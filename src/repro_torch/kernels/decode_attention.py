@@ -3,13 +3,14 @@ version.
 
 The kernel (``csrc/decode_attention.cu``) replaces no TPU kernel: the
 reference's decode attention is plain einsums. It computes one new
-token's GQA attention over a layer's KV cache, (B, Hkv, S_max, hd) as
-``models/attention.py`` ``attention_decode`` holds it, reading each live
-cached K and V once in the cache's dtype, with the plain path's numerics
-(:func:`plain`: :func:`repro_torch.kernels.ref.gqa_ref` over the decode
-mask). It is built with the port's other kernels into one library on
-first use (:mod:`repro_torch.kernels.build`); nothing here runs at import
-time.
+token's GQA attention over a layer's bf16 KV cache, (B, Hkv, S_max, hd)
+as ``models/attention.py`` ``attention_decode`` holds it, reading each
+live cached K and V once, with the plain path's numerics (:func:`plain`:
+:func:`repro_torch.kernels.ref.gqa_ref` over the decode mask). It takes
+bf16 alone, the served dtype: an fp32 model's decode takes the plain path
+(``attention.uses_decode_kernel``). It is built with the port's other
+kernels into one library on first use (:mod:`repro_torch.kernels.build`);
+nothing here runs at import time.
 
 :func:`live_range` is the live range of the decode mask; the kernel
 computes the same range on the card from ``pos`` (a host int, or a 0-d
@@ -39,7 +40,6 @@ __all__ = ["MAX_GROUP", "MAX_HEAD_DIM", "build", "is_ring", "launch",
 MAX_HEAD_DIM = 256
 #: the most query heads a KV head may have (G): a block serves them all
 MAX_GROUP = 8
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches since import (or since a caller last reset it to 0).
 launches = 0
@@ -78,13 +78,10 @@ def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
 def tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
               window=None):
     """(atol, rtol) of the kernel against :func:`plain` on the card at
-    these inputs: ``|got - want| <= atol + rtol |want|`` elementwise,
-    ``atol`` a (B, 1, Hq*hd) tensor for bf16.
+    these bf16 inputs: ``|got - want| <= atol + rtol |want|``
+    elementwise, ``atol`` a (B, 1, Hq*hd) tensor.
 
-    fp32: 2e-5 both, as K2's fp32 routes
-    (:func:`repro_torch.kernels.flash_attention.tolerance`).
-
-    bf16, derived from the inputs. The products are exact (bf16 x bf16
+    Derived from the inputs. The products are exact (bf16 x bf16
     fits fp32's significand); only the fp32 sums' order differs. Bound
     each side's fp32 probability p~_j against the exact p_j (computed
     here in fp64) over the n live slots, with u = 2**-24 and at most one
@@ -121,8 +118,6 @@ def tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
     boundary moves the rows where that slot's p is large by about
     ``p_j |v_jd - out_d|`` (tests/test_torch_decode_attention.py holds
     such faults to failing)."""
-    if q.dtype == torch.float32:
-        return 2e-5, 2e-5
     B, _, Hq, hd = q.shape
     Hkv, S_max = k.shape[1], k.shape[2]
     lo, hi = live_range(int(pos), S_max, window)
@@ -147,7 +142,7 @@ def tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
 
 
 @functools.cache
-def _plan(dtype: torch.dtype, B: int, Hkv: int, G: int, S_max: int, hd: int,
+def _plan(B: int, Hkv: int, G: int, S_max: int, hd: int,
           index: int) -> tuple[int, int]:
     """The kernel's own launch plan on card ``index``
     (``decode_attention_plan``): the cluster size and the bytes of the
@@ -155,7 +150,7 @@ def _plan(dtype: torch.dtype, B: int, Hkv: int, G: int, S_max: int, hd: int,
     lib = build()
     splits, scratch = ctypes.c_int(), ctypes.c_longlong()
     with torch.cuda.device(index):
-        err = lib.decode_attention_plan(_DTYPES[dtype], B, Hkv, G, S_max, hd,
+        err = lib.decode_attention_plan(B, Hkv, G, S_max, hd,
                                         ctypes.byref(splits),
                                         ctypes.byref(scratch))
     if err != 0:
@@ -171,12 +166,12 @@ def build() -> ctypes.CDLL:
     lib = library()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.decode_attention_plan.argtypes = [
-        i32, i32, i32, i32, i32, i32, ctypes.POINTER(i32),
+        i32, i32, i32, i32, i32, ctypes.POINTER(i32),
         ctypes.POINTER(ctypes.c_longlong)]
     lib.decode_attention_plan.restype = i32
     lib.decode_attention_fwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, i32, i32, i32, i32,
-        i32, i32, i32, i32, ctypes.c_float, ptr, ptr]
+        i32, i32, i32, ctypes.c_float, ptr, ptr]
     lib.decode_attention_fwd.restype = i32
     lib.decode_attention_error_string.argtypes = [i32]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -187,8 +182,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
            window, out: torch.Tensor) -> None:
     """Launch the kernel on the current stream; the caller has validated
     every argument (:func:`repro_torch.kernels.ops.decode_attention`).
-    q: (B, 1, Hq, hd); k, v: (B, Hkv, S_max, hd); out: (B, 1, Hq*hd);
-    ``pos`` an int or a 0-d int64 tensor on q's device, read by the
+    q: (B, 1, Hq, hd); k, v: (B, Hkv, S_max, hd); out: (B, 1, Hq*hd), all
+    bf16; ``pos`` an int or a 0-d int64 tensor on q's device, read by the
     kernel. Raises if the runtime refuses the launch."""
     global launches
     lib = build()
@@ -197,7 +192,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
     G = Hq // Hkv
     index = q.device.index if q.device.index is not None \
         else torch.cuda.current_device()
-    n, scratch_bytes = _plan(q.dtype, B, Hkv, G, S_max, hd, index)
+    n, scratch_bytes = _plan(B, Hkv, G, S_max, hd, index)
     scratch = (torch.empty(scratch_bytes, dtype=torch.uint8, device=q.device)
                if scratch_bytes else None)
     on_device = isinstance(pos, torch.Tensor)
@@ -208,8 +203,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
         err = lib.decode_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             pos.data_ptr() if on_device else None,
-            0 if on_device else int(pos), _DTYPES[q.dtype], B, Hkv, G,
-            S_max, hd, int(window or 0), n, scale,
+            0 if on_device else int(pos), B, Hkv, G, S_max, hd,
+            int(window or 0), n, scale,
             None if scratch is None else scratch.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

@@ -16,9 +16,10 @@ the kernels: nothing is padded here.
 * :func:`mamba_scan` takes fp32 inputs and returns ``(y, h_last)``, the
   final state written by the kernel from the state it carries.
 * :func:`decode_attention` takes one new token's q in the model layout
-  and a layer's KV cache as ``attention_decode`` holds it, in fp32 or
-  bf16, and attends the decode mask's live slots only; ``pos`` may be a
-  0-d int64 tensor on the card, which the kernel reads there.
+  and a layer's KV cache as ``attention_decode`` holds it, in bf16 alone
+  (the served dtype; an fp32 decode takes the model's plain path), and
+  attends the decode mask's live slots only; ``pos`` may be a 0-d int64
+  tensor on the card, which the kernel reads there.
 
 The attention and scan kernels are forward-only, like the reference's: an
 input that requires grad raises rather than being silently detached.
@@ -215,23 +216,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos, window=None) -> torch.Tensor:
     """One new token's GQA attention over a layer's KV cache.
 
-    q: (B, 1, Hq, hd); k, v: the cache, (B, Hkv, S_max, hd); one dtype
-    (float32 or bfloat16), one device, contiguous, each starting on a
-    16-byte boundary; ``Hq % Hkv == 0`` with at most
-    :data:`~repro_torch.kernels.decode_attention.MAX_GROUP` query heads a
-    KV head; ``hd`` a multiple of 16 up to
-    256. ``pos``: the position being decoded, an int in ``[0, S_max)``
-    (any int >= 0 on a ring), or a 0-d int64 tensor on q's device, which
-    the kernel reads there (a CUDA graph's position buffer). ``window``:
-    None or a positive int; a cache of at most ``window`` slots is a
-    ring. Attends the slots of
-    :func:`repro_torch.kernels.decode_attention.live_range` with the
-    plain path's numerics. Returns (B, 1, Hq*hd) in q's dtype."""
+    q: (B, 1, Hq, hd); k, v: the cache, (B, Hkv, S_max, hd); bfloat16
+    alone (anything else raises ``TypeError``, on the CPU too, so that
+    the plain version keeps the kernel's contract), on one device,
+    contiguous, each starting on a 16-byte boundary; ``Hq % Hkv == 0``
+    with at most :data:`~repro_torch.kernels.decode_attention.MAX_GROUP`
+    query heads a KV head; ``hd`` a multiple of 16 up to 256. ``pos``:
+    the position being decoded, an int in ``[0, S_max)`` (any int >= 0 on
+    a ring), or a 0-d int64 tensor on q's device, which the kernel reads
+    there (a CUDA graph's position buffer). ``window``: None or a
+    positive int; a cache of at most ``window`` slots is a ring. Attends
+    the slots of :func:`repro_torch.kernels.decode_attention.live_range`
+    with the plain path's numerics. Returns (B, 1, Hq*hd) in bfloat16."""
     dev = _device_of("q", q)
-    dtype = q.dtype
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"q must be torch.float32 or torch.bfloat16, got "
-                        f"{dtype}")
+    dtype = torch.bfloat16
     _check("q", q, dtype, 4, dev, anchor="q")
     _check("k", k, dtype, 4, dev, anchor="q")
     _check("v", v, dtype, 4, dev, anchor="q")

@@ -19,7 +19,9 @@ from the kernels', so the two agree to a tolerance, not bit for bit.
 
 :func:`gqa_ref` is the model's plain attention over a key mask (the
 reference's ``_sdpa``), and with the decode mask the plain version of the
-decode-attention kernel (:mod:`repro_torch.kernels.decode_attention`).
+decode-attention kernel (:mod:`repro_torch.kernels.decode_attention`);
+its scores are :func:`grouped_scores`, which the mesh's key-parallel
+attention (``models/attention.py``) computes on each rank's keys too.
 """
 from __future__ import annotations
 
@@ -32,8 +34,8 @@ import torch
 
 __all__ = ["LaneSchedule", "NEG_INF", "flash_attention_ref",
            "gbdt_predict_numpy", "gbdt_predict_ref", "gqa_ref",
-           "lane_schedule",
-           "lane_sum", "mamba_scan_ref", "pairwise_program"]
+           "grouped_scores", "lane_schedule", "lane_sum", "mamba_scan_ref",
+           "pairwise_program"]
 
 #: The reference's mask value: large and negative, finite in fp32 and bf16.
 NEG_INF = -2.0 ** 30
@@ -221,6 +223,24 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Hq, Sq, hd).to(q.dtype)
 
 
+def grouped_scores(q, k, valid=None):
+    """The fp32 scores of q (B, S, Hq, hd) over k (B, Hkv, Sk, hd), a KV
+    head's G query heads and S rows as one (G*S, hd) block: (B, Hkv,
+    G*S, Sk), products of the q-dtype values summed in fp32, divided by
+    sqrt(hd); where ``valid`` ((Sk,), or (S, Sk) per query) is false,
+    :data:`NEG_INF`."""
+    B, S, Hq, hd = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    G = Hq // K
+    qg = q.reshape(B, S, K, G, hd).permute(0, 2, 3, 1, 4).reshape(
+        B, K, G * S, hd).float()
+    scores = (qg @ k.to(q.dtype).float().transpose(-1, -2)) / math.sqrt(hd)
+    if valid is not None:
+        scores = torch.where(valid, scores.view(B, K, G, S, Sk),
+                             NEG_INF).view(B, K, G * S, Sk)
+    return scores
+
+
 def gqa_ref(q, k, v, valid=None):
     """q (B, S, Hq, hd) over k/v (B, Hkv, Sk, hd), as the reference's
     ``_sdpa``: products of the q-dtype values summed in fp32 (its einsums
@@ -228,17 +248,10 @@ def gqa_ref(q, k, v, valid=None):
     dtype. ``valid`` masks keys: (Sk,) for every query alike, or (S, Sk)
     per query. Returns (B, S, Hq*hd) in q's dtype."""
     B, S, Hq, hd = q.shape
-    K, Sk = k.shape[1], k.shape[2]
+    K = k.shape[1]
     G = Hq // K
-    # a KV head's G query heads and S rows as one (G*S, hd) block
-    qg = q.reshape(B, S, K, G, hd).permute(0, 2, 3, 1, 4).reshape(
-        B, K, G * S, hd).float()
-    kf = k.to(q.dtype).float()
     vf = v.to(q.dtype).float()
-    scores = (qg @ kf.transpose(-1, -2)) / math.sqrt(hd)     # (B,K,G*S,Sk)
-    if valid is not None:
-        scores = torch.where(valid, scores.view(B, K, G, S, Sk),
-                             NEG_INF).view(B, K, G * S, Sk)
+    scores = grouped_scores(q, k, valid)                     # (B,K,G*S,Sk)
     probs = torch.softmax(scores, dim=-1).to(q.dtype).float()
     out = (probs @ vf).to(q.dtype).reshape(B, K, G, S, hd)
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq * hd)

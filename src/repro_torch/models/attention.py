@@ -20,10 +20,11 @@ chosen by the ``impl`` argument alone:
   and for cross-attention, and :func:`_sdpa_chunked` for a causal
   sequence of at least 8192 positions in whole 2048-position chunks.
 
-Single-token decode (:func:`attention_decode`) over a plain CUDA cache
-with no mesh launches the decode-attention kernel
+Single-token decode (:func:`attention_decode`) of bf16 activations over
+a plain bf16 CUDA cache with no mesh launches the decode-attention kernel
 (:func:`repro_torch.kernels.ops.decode_attention`), which reads the live
-slots only; elsewhere (the CPU, a mesh) it is the plain path with the
+slots only (:func:`uses_decode_kernel`, the one place the route is
+chosen); elsewhere (fp32, the CPU, a mesh) it is the plain path with the
 decode mask, as in the reference.
 
 Under a mesh the plain path runs on local shards in one of two layouts.
@@ -37,15 +38,13 @@ v gathered, nothing summed (:func:`_queries_split`).
 """
 from __future__ import annotations
 
-import math
-
 import torch
 from torch import nn
 
 from .. import obs
 from ..kernels import ops as kops
 from ..kernels.decode_attention import is_ring, live_range
-from ..kernels.ref import NEG_INF, gqa_ref as _gqa
+from ..kernels.ref import gqa_ref as _gqa, grouped_scores
 from .common import (FSDP, TP, P, apply_rope, assign, check_impl,
                      current_mesh, dense_init, dtype_of, matmul,
                      maybe_shard, param, residual, shard_map, split_spec)
@@ -349,13 +348,7 @@ def _key_parallel_gqa(q, k, v, valid=None):
     group = mesh.get_group(TP) if keys[2] else None
 
     def local(q, k, v, *mask):
-        Bl, Sl, Skl = q.shape[0], q.shape[1], k.shape[2]
-        qg = q.reshape(Bl, Sl, K, G, hd).permute(0, 2, 3, 1, 4).reshape(
-            Bl, K, G * Sl, hd).float()
-        s = (qg @ k.to(q.dtype).float().transpose(-1, -2)) / math.sqrt(hd)
-        if mask:
-            s = torch.where(mask[0], s.view(Bl, K, G, Sl, Skl),
-                            NEG_INF).view(Bl, K, G * Sl, Skl)
+        s = grouped_scores(q, k, *mask)
         m = s.amax(dim=-1, keepdim=True).detach()
         if group is not None:
             from torch.distributed import _functional_collectives as funcol
@@ -413,16 +406,12 @@ def attention_decode(p: Attention, x, cache_k, cache_v, pos, cfg):
             slot = (slice(None), slice(None), write_idx)
             assign(cache_k, slot, k[:, 0].to(cache_k.dtype))
             assign(cache_v, slot, v[:, 0].to(cache_v.dtype))
-    kernel = uses_decode_kernel(cache_k)
+    kernel = uses_decode_kernel(cache_k, q.dtype)
     if obs.on and not on_device:
         count_positions(B, S_max, pos, cfg.sliding_window, kernel=kernel)
     with obs.span("attention.attend"):
         if kernel:
-            # the cache in q's dtype, as the plain path reads it: no copy
-            # where they agree (served models); an fp32 model over a bf16
-            # cache reads a widened copy
-            out = kops.decode_attention(q, cache_k.to(q.dtype),
-                                        cache_v.to(q.dtype), pos,
+            out = kops.decode_attention(q, cache_k, cache_v, pos,
                                         cfg.sliding_window)
         else:
             out = _plain_gqa(q, cache_k, cache_v,
@@ -432,10 +421,17 @@ def attention_decode(p: Attention, x, cache_k, cache_v, pos, cfg):
         return residual(matmul(out, p.wo.to(x.dtype))), cache_k, cache_v
 
 
-def uses_decode_kernel(cache) -> bool:
+def uses_decode_kernel(cache, dtype: torch.dtype) -> bool:
     """Whether :func:`attention_decode` over ``cache`` (a layer's, or a
-    stack of them) launches the decode-attention kernel: a plain CUDA
-    tensor and no mesh."""
+    stack of them) with activations of ``dtype`` launches the
+    decode-attention kernel: bf16 on both (the kernel's one dtype; an
+    fp32 step takes the plain path, the reference's arithmetic), and the
+    cache on the card (:func:`_on_card`)."""
+    return cache.dtype == dtype == torch.bfloat16 and _on_card(cache)
+
+
+def _on_card(cache) -> bool:
+    """A plain CUDA tensor (not a DTensor) and no mesh."""
     return (type(cache) is torch.Tensor and cache.is_cuda
             and current_mesh() is None)
 

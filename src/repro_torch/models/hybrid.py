@@ -391,7 +391,8 @@ def count_decode_step(cfg, cache, pos: int) -> None:
         n, B, _, S_max, _ = cache["attn_k"].shape
         attn_mod.count_positions(
             B, S_max, pos, cfg.sliding_window, n,
-            kernel=attn_mod.uses_decode_kernel(cache["attn_k"]))
+            kernel=attn_mod.uses_decode_kernel(
+                cache["attn_k"], dtype_of(cfg.activation_dtype)))
     obs.count("mamba.state_bytes",
               2 * (cache["conv"].nbytes + cache["ssm"].nbytes))
 

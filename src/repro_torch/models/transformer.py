@@ -212,7 +212,8 @@ def count_decode_step(cfg, cache, pos: int) -> None:
         n, B, _, S_max, _ = stack["k"].shape
         attn_mod.count_positions(
             B, S_max, pos, cfg.sliding_window, n,
-            kernel=attn_mod.uses_decode_kernel(stack["k"]))
+            kernel=attn_mod.uses_decode_kernel(
+                stack["k"], dtype_of(cfg.activation_dtype)))
 
 
 def decode_step(params: TransformerLM, cache, tokens, pos, cfg):

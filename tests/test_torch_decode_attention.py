@@ -1,25 +1,28 @@
-"""The decode-attention kernel (K4, ``kernels/decode_attention.py``) and
-its route in ``attention_decode``.
+"""The decode-attention kernel (K4, ``kernels/decode_attention.py``),
+which takes bf16 alone, and its route in ``attention_decode``
+(``attention.uses_decode_kernel``).
 
 On the CPU: the live range the kernel computes is the decode mask for
 every position of causal, windowed and ring caches; the wrapper's plain
-version equals ``_gqa`` over that mask bit for bit; ``attention_decode``
-on the kernel route (forced on the CPU, where the wrapper runs the plain
-version) gives the plain route's output bit for bit; the counters of both
-routes, through ``attention_decode`` and ``count_decode_step``; the
-tolerance (``tolerance()``) holding for the kernel's order of the fp32
-sums and failing for faults of one slot or one 16-row step; what the
-wrapper refuses. On the card (``cuda`` marker, skipped without one; no
-JAX is imported here)::
+version equals ``_gqa`` over that mask bit for bit, up to G 8; a bf16
+``attention_decode`` with its cache put on the card (forced on the CPU,
+where the wrapper runs the plain version) takes the kernel route and
+gives the plain route's output bit for bit, and an fp32 one takes the
+plain route there (``_plain_gqa`` over the decode mask; the kernel is
+never called); the counters of both routes, through ``attention_decode``
+and ``count_decode_step``; the tolerance (``tolerance()``) holding for
+the kernel's order of the fp32 sums and failing for faults of one slot
+or one 16-row step; what the wrapper refuses, fp32 among it. On the card
+(``cuda`` marker, skipped without one; no JAX is imported here)::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_decode_attention.py
 
 the kernel against the plain version at ``tolerance()`` over head dims
-64-256, G 1-8, both dtypes, positions at both ends and in the middle,
-windows and rings; the two serving cells' shapes, where faults planted
-in the kernel's arguments or in the mask fail the same check; caches of
-131072 slots, whose scores leave shared memory; the int and tensor
-``pos`` and two calls bit for bit; what the wrapper refuses there.
+64-256, G 1-8, positions at both ends and in the middle, windows and
+rings; the two serving cells' shapes, where faults planted in the
+kernel's arguments or in the mask fail the same check; caches of 131072
+slots, whose scores leave shared memory; the int and tensor ``pos`` and
+two calls bit for bit; what the wrapper refuses there.
 """
 from __future__ import annotations
 
@@ -79,11 +82,10 @@ def _inputs(B, Hq, Hkv, hd, S_max, dtype, device="cpu", seed=0):
     return [t.to(dtype).to(device) for t in (q, k, v)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 2), (6, 2)])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 2), (6, 2), (16, 2)])
 @pytest.mark.parametrize("S_max,window", CACHES)
-def test_plain_version_is_gqa_over_the_mask_bitwise(S_max, window, Hq, Hkv,
-                                                    dtype):
+def test_plain_version_is_gqa_over_the_mask_bitwise(S_max, window, Hq, Hkv):
+    dtype = torch.bfloat16
     q, k, v = _inputs(2, Hq, Hkv, 32, S_max, dtype)
     for pos in (0, S_max // 2, S_max - 1, S_max + 3):
         if pos >= S_max and not _ring(S_max, window):
@@ -101,15 +103,23 @@ def _cfg(window=None, dtype="float32"):
         activation_dtype=dtype)
 
 
+def _on_card(monkeypatch):
+    """Every cache counts as on the card with no mesh: the route is then
+    the dtypes' alone (``uses_decode_kernel``)."""
+    monkeypatch.setattr(attn, "_on_card", lambda cache: True)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S_max,window", CACHES)
 def test_attention_decode_on_the_kernel_route(monkeypatch, S_max, window,
                                               dtype):
-    """``attention_decode`` with the route forced to the kernel (whose
-    wrapper runs the plain version on the CPU) against the plain route:
-    the same output and cache bit for bit, for int and tensor ``pos``;
-    the int route counts the live slots as attended and one kernel
-    attention."""
+    """``attention_decode`` with its cache taken to be on the card against
+    the plain route as the CPU runs it: the same output and cache bit for
+    bit, for int and tensor ``pos``. bf16 takes the kernel (whose wrapper
+    runs the plain version on the CPU): the int route counts the live
+    slots as attended and one kernel attention. fp32 takes the plain
+    route even so: ``_plain_gqa`` over the decode mask, the kernel never
+    called, every slot counted as attended."""
     cfg = _cfg(window, dtype)
     p = attn.init_attention(cfg, torch.Generator().manual_seed(0), "cpu")
     dt = p.wq.dtype
@@ -118,11 +128,23 @@ def test_attention_decode_on_the_kernel_route(monkeypatch, S_max, window,
     x = torch.randn((B, 1, cfg.d_model), generator=g).to(dt)
     shape = (B, cfg.n_kv_heads, S_max, cfg.resolved_head_dim)
     ck, cv = (torch.randn(shape, generator=g).to(dt) for _ in range(2))
+    kernel = dtype == "bfloat16"
+    plain = attn._plain_gqa
     for pos in (0, S_max - 1, 2 * S_max + 1):
         if pos >= S_max and not _ring(S_max, window):
             continue
         want = attn.attention_decode(p, x, ck.clone(), cv.clone(), pos, cfg)
-        monkeypatch.setattr(attn, "uses_decode_kernel", lambda c: True)
+        _on_card(monkeypatch)
+        masks = []
+        if not kernel:
+            def refuse(*args, **kw):
+                raise AssertionError("an fp32 step called the kernel")
+
+            def spy(q, k, v, valid=None, rows=None):
+                masks.append(valid)
+                return plain(q, k, v, valid, rows)
+            monkeypatch.setattr(attn.kops, "decode_attention", refuse)
+            monkeypatch.setattr(attn, "_plain_gqa", spy)
         obs.enable()
         for at in (pos, torch.tensor(pos)):
             got = attn.attention_decode(p, x, ck.clone(), cv.clone(), at,
@@ -132,10 +154,18 @@ def test_attention_decode_on_the_kernel_route(monkeypatch, S_max, window,
         obs.disable()
         monkeypatch.undo()
         lo, hi = da.live_range(pos, S_max, window)
-        assert obs.drain().counts == {
-            "attention.positions_attended": B * (hi - lo),
-            "attention.positions_live": B * (hi - lo),
-            "attention.decode_kernel": 1}
+        if kernel:
+            assert obs.drain().counts == {
+                "attention.positions_attended": B * (hi - lo),
+                "attention.positions_live": B * (hi - lo),
+                "attention.decode_kernel": 1}
+        else:
+            mask = attn.decode_mask(pos, S_max, window)
+            assert len(masks) == 2 and all(torch.equal(m, mask)
+                                           for m in masks)
+            assert obs.drain().counts == {
+                "attention.positions_attended": B * S_max,
+                "attention.positions_live": B * (hi - lo)}
 
 
 def _hybrid(dtype="float32"):
@@ -153,17 +183,19 @@ def _hybrid(dtype="float32"):
 def test_count_decode_step_counts_the_route_it_is_given(monkeypatch, family,
                                                         kernel):
     """``count_decode_step`` on each route against what the eager
-    int-``pos`` steps count there (the kernel route forced on the CPU):
-    every slot attended on the plain route, the live ones through the
-    kernel, and one ``attention.decode_kernel`` an attention layer."""
-    cfg = _cfg() if family == "dense" else _hybrid()
+    int-``pos`` steps count there (the kernel route: a bf16 model with
+    its cache taken to be on the card): every slot attended on the plain
+    route, the live ones through the kernel, and one
+    ``attention.decode_kernel`` an attention layer."""
+    dtype = "bfloat16" if kernel else "float32"
+    cfg = _cfg(dtype=dtype) if family == "dense" else _hybrid(dtype)
     params = model.init(cfg, device="cpu")
     S, max_seq = 5, 16
     tokens = torch.randint(0, cfg.vocab_size, (2, S),
                            generator=torch.Generator().manual_seed(2))
     _, cache = model.prefill(cfg, params, tokens, max_seq, device="cpu")
     if kernel:
-        monkeypatch.setattr(attn, "uses_decode_kernel", lambda c: True)
+        _on_card(monkeypatch)
     layers = (len(cfg.hybrid_layer_ids) if family == "hybrid"
               else cfg.n_layers)
     obs.enable()
@@ -276,15 +308,12 @@ def test_tolerance_fails_faults_of_one_slot(shape):
         assert _worst(got, want, atol, rtol) > 1.0, name
 
 
-def test_tolerance_of_fp32_is_k2s():
-    q, k, v = _inputs(1, 4, 2, 32, 16, torch.float32)
-    assert da.tolerance(q, k, v, 5) == (2e-5, 2e-5)
-
-
 def _refusals(device):
     q, k, v = _inputs(2, 4, 2, 32, 16, torch.bfloat16, device)
     bad = {
         "dtype": ((q, k.float(), v.float(), 3), TypeError, "bfloat16"),
+        "fp32": ((q.float(), k.float(), v.float(), 3), TypeError,
+                 "bfloat16"),
         "two tokens": ((q.expand(2, 2, 4, 32).contiguous(), k, v, 3),
                        ValueError, "one token"),
         "non-contiguous": ((q, k.transpose(2, 3), v, 3), ValueError,
@@ -316,8 +345,7 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="window"):
         ops.decode_attention(q, k, v, 3, window=0)
     with pytest.raises(ValueError, match="requires grad"):
-        ops.decode_attention(q.float().requires_grad_(), k.float(),
-                             v.float(), 3)
+        ops.decode_attention(q.clone().requires_grad_(), k, v, 3)
 
 
 # ---------------------------------------------------------------------- #
@@ -354,14 +382,13 @@ CARD_SHAPES = [(64, 20, 20, 1), (80, 40, 8, 32), (112, 64, 8, 1),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("S_max,window", [(512, None), (512, 100),
                                           (256, 256), (192, 4096)])
 @pytest.mark.parametrize("hd,Hq,Hkv,B", CARD_SHAPES)
-def test_kernel_matches_plain_on_the_card(hd, Hq, Hkv, B, S_max, window,
-                                          dtype):
+def test_kernel_matches_plain_on_the_card(hd, Hq, Hkv, B, S_max, window):
     dev = _card()
-    q, k, v = _inputs(B, Hq, Hkv, hd, S_max, dtype, dev, seed=hd + Hq)
+    q, k, v = _inputs(B, Hq, Hkv, hd, S_max, torch.bfloat16, dev,
+                      seed=hd + Hq)
     before = da.launches
     for pos in _cases(S_max, window):
         got = ops.decode_attention(q, k, v, pos, window)
@@ -409,7 +436,7 @@ def test_the_cells_shapes_on_the_card(cell, window):
     for name, (p, w) in wrong.items():
         got = ops.decode_attention(q, k, v, p, w)
         assert _worst(got, want, atol, rtol) > 1.0, name
-    splits, _ = da._plan(q.dtype, B, Hkv, Hq // Hkv, 2048, hd, dev.index or 0)
+    splits, _ = da._plan(B, Hkv, Hq // Hkv, 2048, hd, dev.index or 0)
     lo, hi = da.live_range(pos, 2048, window)
     for name, mask in _faults(lo, hi, 2048, max(splits, 2)).items():
         got = ref.gqa_ref(q, k, v, mask.to(dev))
@@ -417,18 +444,16 @@ def test_the_cells_shapes_on_the_card(cell, window):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("Hq,Hkv", [(32, 8), (64, 8)])
-def test_a_long_cache_on_the_card(Hq, Hkv, dtype):
+def test_a_long_cache_on_the_card(Hq, Hkv):
     """B 1 over 131072 slots at head dim 128, G 4 (Mistral-NeMo-12B's
     context) and G 8: the scores of even 8 slices exceed a block's shared
     memory, so they go to the scratch; the plain version's values at both
     ends and in the middle, under a window too."""
     dev = _card()
     S_max = 131072
-    q, k, v = _inputs(1, Hq, Hkv, 128, S_max, dtype, dev, seed=Hq)
-    splits, scratch = da._plan(dtype, 1, Hkv, Hq // Hkv, S_max, 128,
-                               dev.index or 0)
+    q, k, v = _inputs(1, Hq, Hkv, 128, S_max, torch.bfloat16, dev, seed=Hq)
+    splits, scratch = da._plan(1, Hkv, Hq // Hkv, S_max, 128, dev.index or 0)
     assert scratch > 0 and 1 <= splits <= 8
     for pos, window in ((0, None), (70000, None), (S_max - 1, None),
                         (S_max - 1, 4096)):

@@ -11,8 +11,10 @@ marker, skipped without one; no JAX is imported here)::
 
 the graph's steps against the eager int-route steps: the same greedy
 tokens and the same logits bit for bit (the replay runs the kernels the
-eager step launches), a second cache copied in mid-way, the graph's
-counters and the position counters counted on the host.
+eager step launches: a bf16 step's attention in the decode-attention
+kernel, an fp32 step's in the plain path over the decode mask), a second
+cache copied in mid-way, the graph's counters and the position counters
+counted on the host.
 """
 from __future__ import annotations
 
