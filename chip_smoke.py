@@ -44,7 +44,13 @@ card, in phases:
    its plain version at its tolerance derived from the inputs (faults of
    one slot or a 16-row step planted must each fail it) and timed
    (median of 20) beside its bound (the live K and V read once), the
-   plain version and SDPA with the boolean mask;
+   plain version and SDPA with the boolean mask; then K3's Mamba-2 route
+   (``mamba2_scan``: every head and B/C group in one launch) at
+   Zamba2-7B's layer, B 1 at L 2048 and 4096 and B 32 at L 512, in bf16
+   as served: checked against its plain version, bit for bit against the
+   route it replaced, and timed (median of 20) beside that route's two
+   Mamba-1 calls, the plain version and ``perfbench/counts/hybrid.scan``'s
+   bound;
 7. Mistral-NeMo-12B served at full width and depth (random bf16 weights
    from a seed): 4 prompts of 2048 tokens, then 32 greedy decode steps
    through ``greedy_generate``; every flash-attention launch of it must
@@ -86,7 +92,8 @@ card, in phases:
    Mixtral-8x22B (8 of 56 layers, 2 prompts of 6144 tokens, past its
    4096 window), Kimi-K2 (1 dense + 1 MoE layer of 384 experts and a
    shared expert, 16 steps), Zamba2-7B (all 81 Mamba-2 blocks, 13
-   shared-attention applications), Whisper-large-v3 (32 + 32 layers,
+   shared-attention applications; each Mamba-2 prompt one launch of K3's
+   Mamba-2 kernel), Whisper-large-v3 (32 + 32 layers,
    1500 stub frames, a 64-token decoder prompt), InternVL2-76B (24 of 80
    layers, 256 stub vision embeddings + 1792 text tokens). Every prefill
    launches exactly the kernels its layers call, every bf16 attention
@@ -120,8 +127,9 @@ card, in phases:
    max|g|/127, ms per round; ``moe_sharded`` on a (1, 1) data x model
    CUDA mesh over one Kimi-K2 MoE layer at full width (384 experts,
    d_model 7168, the shared expert, bf16), bit for bit with ``moe``; one
-   Zamba2-7B Mamba-2 block (fp32) on that mesh, its scan in K3 on the
-   rank's heads (one launch), within 1e-5 of the meshless block; the
+   Zamba2-7B Mamba-2 block (fp32) on that mesh, its scan in K3's Mamba-2
+   kernel on the rank's heads (one launch), within 1e-5 of the meshless
+   block; the
    elastic restore of SmolLM-360M's bf16 params and int8 AdamW state onto
    a one-rank CUDA mesh by the spec trees, every shard bit for bit with
    the saved arrays (psum and the restore are timed before the dry runs
@@ -232,6 +240,10 @@ FAMILY_ATTN = (
 )
 #: ... and zamba2-7b's Mamba-2 prefill as a Mamba-1 scan (B, L, Di, N)
 FAMILY_SCAN = (4, 2048, 7168, 64)
+#: Zamba2-7B's Mamba-2 layer (H, P, G, N) and the Mamba-2 route's (B, L):
+#: the prefill cell's prompts at B 1, the decode cell's batch prefill
+MAMBA2_LAYER = (112, 64, 2, 64)
+MAMBA2_SHAPES = ((1, 2048), (1, 4096), (32, 512))
 #: the decode cells' attention layers (B, Hq, Hkv, hd), over a bf16 cache
 #: of DECODE_SLOTS at DECODE_POS (mid-batch of decode-b32's 512 -> 2048)
 DECODE_ATTN = (("mistral-nemo-12b", (32, 32, 8, 128)),
@@ -249,7 +261,7 @@ FAMILY_PHASES = {
     12: ("kimi-k2-1t-a32b", {"fa": 2},
          dict(attentions=2, layers={"n_layers": 2}, steps=16,
               check={"served": True, "prompt": 64})),
-    13: ("zamba2-7b", {"fa": 13, "ms": 81},
+    13: ("zamba2-7b", {"fa": 13, "m2": 81},
          # 7 blocks keep one shared-attention application and a tail
          dict(attentions=13, check={"n_layers": 7})),
     # the decoder's 32 self-attentions (its cross-attentions have no mask)
@@ -1248,6 +1260,84 @@ def _decode_attention_times(da, ops, ref, dev) -> list:
     return rows
 
 
+def _mamba2_scan_times(m2, ops, ref, dev) -> list:
+    """Phase 6's Mamba-2 route (K3, ``ops.mamba2_scan``) at Zamba2-7B's
+    layer: B 1 at L 2 048 and 4 096, and the decode cell's batch prefill,
+    B 32 L 512, in bf16 as served (x, B and C strided views of one
+    projection, y written in bf16). Checked against the plain version
+    (y within F32_TOL's atol and one bf16 ulp, the state within
+    F32_TOL), equal bit for bit to the route it replaced (the Mamba-1
+    kernel once a group on the expanded fp32 inputs, y rounded once to
+    bf16), one launch a call; timed (median of 20, CUDA events)
+    beside that route's two Mamba-1 calls alone and with its copies, the
+    plain version and the bound of ``perfbench/counts/hybrid.scan``."""
+    from perfbench.counts import hybrid as hcounts
+    H, P, G, N = MAMBA2_LAYER
+    rows = []
+    for B, L in MAMBA2_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(16)
+        Di = H * P
+        xBC = torch.randn((B, L, Di + 2 * G * N), generator=gen,
+                          device=dev).to(torch.bfloat16)
+        x = xBC[..., :Di].unflatten(-1, (H, P))
+        Bm = xBC[..., Di:Di + G * N].unflatten(-1, (G, N))
+        Cm = xBC[..., Di + G * N:].unflatten(-1, (G, N))
+        dt = F.softplus(torch.randn((B, L, H), generator=gen, device=dev)
+                        - 1.0)
+        A = -torch.linspace(1.0, 16.0, H, device=dev)
+        D = torch.linspace(0.5, 1.5, H, device=dev)
+        args = (x, dt, A, Bm, Cm, D)
+        n0 = m2.launches
+        y, h = ops.mamba2_scan(*args)
+        torch.cuda.synchronize()
+        _check(m2.launches - n0 == 1, "one Mamba-2 scan launch a call")
+        _check(y.dtype == torch.bfloat16, "mamba2_scan: y not in bf16")
+        wy, wh = ref.mamba2_scan_ref(*args)
+        # both round an fp32 sum once: the sums' tolerance and one ulp
+        err = _close(y, wy, (F32_TOL[0], BF16_TOL[1] + F32_TOL[1]),
+                     f"mamba2_scan y {B, L}")
+        herr = _close(h, wh, F32_TOL, f"mamba2_scan h_last {B, L}")
+        oy, oh = ref.mamba2_scan_ref(*args, scan=ops.mamba_scan)
+        _check(torch.equal(y, oy) and torch.equal(h, oh),
+               f"mamba2_scan {B, L}: not the Mamba-1 route's bits")
+        del y, h, wy, wh, oy, oh
+        ms_ = _time_cuda_median(lambda: ops.mamba2_scan(*args))
+        # the route it replaced: dt, A and D expanded to every channel,
+        # fp32 copies, one Mamba-1 call a group
+        dt_c = dt.bfloat16().float().repeat_interleave(P, dim=-1)
+        A_c = A.repeat_interleave(P)[:, None].expand(Di, N).contiguous()
+        D_c = D.repeat_interleave(P)
+        c = Di // G
+        expanded = [(x.flatten(2)[..., g * c:(g + 1) * c].float()
+                     .contiguous(), dt_c[..., g * c:(g + 1) * c].contiguous(),
+                     A_c[g * c:(g + 1) * c].contiguous(),
+                     Bm[:, :, g].float().contiguous(),
+                     Cm[:, :, g].float().contiguous(),
+                     D_c[g * c:(g + 1) * c].contiguous()) for g in range(G)]
+        two = _time_cuda_median(lambda: [ops.mamba_scan(*e)
+                                         for e in expanded])
+        whole = _time_cuda_median(lambda: ref.mamba2_scan_ref(
+            *args, scan=ops.mamba_scan))
+        del expanded, dt_c, A_c
+        plain = _time_cuda(lambda: ref.mamba2_scan_ref(*args), 1)
+        ops_, nbytes = hcounts.scan(B, L, H, P, G, N)
+        bound = max(ops_ / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        rows.append(dict(shape=[B, L, H, P, G, N], ms=ms_,
+                         mamba1_two_calls_ms=two, replaced_route_ms=whole,
+                         plain_ms=plain, bound_ms=bound, bound_by="bytes",
+                         roofline_pct=100 * bound / ms_, max_abs_err=err,
+                         h_last_max_abs_err=herr))
+        print(f"   mamba2_scan (K3, Mamba-2 route) B={B} L={L} H={H} P={P} "
+              f"G={G} N={N} bf16: kernel {ms_:.6f}  two Mamba-1 calls "
+              f"{two:.6f}  with their copies {whole:.6f}  plain "
+              f"{plain:.6f}  bound {bound:.6f} (counts/hybrid.scan)  "
+              f"roofline {100 * bound / ms_:.2f} %  max abs err y {err:.3e}"
+              f" h_last {herr:.3e}; the replaced route's bits", flush=True)
+        del xBC, x, Bm, Cm, dt, args
+        _free()
+    return rows
+
+
 def _bf16_attention_check(cfg, fa, ops, ref, dev) -> float:
     """Phase 7's end: a 2-layer, full-width bf16 prefill of one serving-length
     prompt as the package runs it, then again with ``ops.flash_attention``
@@ -1914,13 +2004,14 @@ def _moe_on_mesh(dev) -> None:
 
 def _mamba2_on_mesh(dev) -> int:
     """Phase 17(b'): one Zamba2-7B Mamba-2 block at full width (fp32) on
-    the (1, 1) CUDA mesh, the serving route: its scan runs in K3 on each
-    rank's heads (one launch, as without the mesh), the output within
+    the (1, 1) CUDA mesh, the serving route: its scan runs in K3's
+    Mamba-2 kernel (``mamba2_scan``) on each rank's heads (one launch, as
+    without the mesh), the output within
     1e-5 of its max of the meshless block's (the gated norm sums its
     squares per rank there), the final state bit for bit. Returns K3's
     launches on the mesh."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import mamba2_scan as m2
     from repro_torch.launch.mesh import make_mesh, set_mesh
     from repro_torch.models import ssm
     from repro_torch.models.common import P, sanitize_spec, to_dtensor
@@ -1941,11 +2032,11 @@ def _mamba2_on_mesh(dev) -> int:
             requires_grad=False)
     with torch.no_grad():
         want, want_st = ssm.mamba2_block(p, x, cfg)
-        n0 = ms.launches
+        n0 = m2.launches
         with implicit_replication(), set_mesh(mesh):
             got, st = ssm.mamba2_block(
                 dp, to_dtensor(x, mesh, P("data", None, None)), cfg)
-        launches = ms.launches - n0
+        launches = m2.launches - n0
     torch.cuda.synchronize()
     got, h = got.to_local(), st["ssm"].to_local()
     err = float((got - want).abs().max())
@@ -2211,12 +2302,12 @@ def main() -> int:
     from repro_torch.kernels import build, gbdt_predict as gp
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa, mamba_scan as ms
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import mamba2_scan as m2, ops, ref
 
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    counters = (gp, fa, ms, da)
+    counters = (gp, fa, ms, da, m2)
     card = _card_line()
     print(f"== phase 0: card {card}; torch {torch.__version__} "
           f"(CUDA {torch.version.cuda}); "
@@ -2442,6 +2533,7 @@ def main() -> int:
     p5 = _kernels_vs_plain(dev, fa, ops, ref)
     times = _kernel_times(fa, ops, ref, p5, card, dev)
     decode_times = _decode_attention_times(da, ops, ref, dev)
+    mamba2_times = _mamba2_scan_times(m2, ops, ref, dev)
     attn_err, scan_err = p5["attn_err"], p5["scan_err"]
     del p5
     from repro_torch.configs import get_config
@@ -2465,7 +2557,8 @@ def main() -> int:
     del preds, fed_preds, fed_pred, services, results
     _free()
     for phase, (arch, kernels, kw) in FAMILY_PHASES.items():
-        per_prefill = {{"fa": fa, "ms": ms}[k]: n for k, n in kernels.items()}
+        per_prefill = {{"fa": fa, "ms": ms, "m2": m2}[k]: n
+                       for k, n in kernels.items()}
         served[phase] = _serve(arch, per_prefill, counters, dev, phase, **kw)
     t0 = time.perf_counter()
     trained = _train_smollm(counters, fa, ms, dev, card)
@@ -2482,8 +2575,8 @@ def main() -> int:
     _free()
     _reset(counters)
     dryrun_rows, p17_scans = _phase17(dev, card)
-    _check(fa.launches == 0 and gp.launches == 0 and
-           ms.launches == 2 * p17_scans == 2,
+    _check(fa.launches == 0 and gp.launches == 0 and ms.launches == 0 and
+           m2.launches == 2 * p17_scans == 2,
            "phase 17 launched a kernel but the Mamba-2 blocks' K3")
     p18 = _phase18(gp, counters, dev, card, dryrun_rows)
 
@@ -2536,8 +2629,6 @@ def main() -> int:
     rows[1]["simt_source"] = "src/repro_torch/csrc/flash_attention.cu"
     rows[1]["launches_by_route"] = \
         served[7]["by_route"]["flash_attention"]
-    # phase 17: the Mamba-2 block on the (1, 1) mesh
-    rows[2]["launches_phase17_mesh"] = p17_scans
     rows[1]["launches_by_route_by_phase"] = {
         str(ph): got["by_route"]["flash_attention"]
         for ph, got in served.items() if got["flash_attention"]}
@@ -2549,6 +2640,17 @@ def main() -> int:
         "launches_by_phase": {str(ph): got["decode_attention"]
                               for ph, got in served.items()},
         "cell_shapes": decode_times})
+    rows.append({
+        "name": "mamba2_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/mamba2_scan.cu",
+        # K3's Mamba-2 route: the reference runs its plain recurrence
+        "replaces": "src/repro/kernels/mamba_scan.py:72",
+        "launches": served[13]["mamba2_scan"],
+        "launches_by_phase": {str(ph): got["mamba2_scan"]
+                              for ph, got in served.items()},
+        # phase 17: the Mamba-2 block on the (1, 1) mesh
+        "launches_phase17_mesh": p17_scans,
+        "cell_shapes": mamba2_times})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -42,7 +42,8 @@ encoder-decoder), with the reference's parameter names and layouts
 :mod:`repro_torch.train.serve` serves them: prefill, then batched greedy
 decode. Prefill attention and the Mamba prefill scans run in hand-written
 CUDA kernels (``csrc/flash_attention_sm90.cu``, ``csrc/flash_attention.cu``,
-``csrc/mamba_scan.cu``); decode is plain torch, as in the reference.
+``csrc/mamba_scan.cu``, ``csrc/mamba2_scan.cu``); decode is plain torch, as
+in the reference.
 
 Entry points run on the card by default (``device="cuda"``) and raise
 when CUDA is absent; pass ``device="cpu"`` to run on the CPU (see

@@ -15,6 +15,12 @@ the kernels: nothing is padded here.
   :func:`repro_torch.kernels.flash_attention.route` chooses.
 * :func:`mamba_scan` takes fp32 inputs and returns ``(y, h_last)``, the
   final state written by the kernel from the state it carries.
+* :func:`mamba2_scan` takes a Mamba-2 prompt's x, B and C in the
+  activation dtype (fp32 or bf16) as strided views of the in-projection,
+  its dt, A and D per head, and scans every head and B/C group in one
+  launch; y in the activation dtype, ``h_last`` in fp32. Its
+  plain version runs :func:`mamba_scan` once a group
+  (:func:`repro_torch.kernels.ref.mamba2_scan_ref`).
 * :func:`decode_attention` takes one new token's q in the model layout
   and a layer's KV cache as ``attention_decode`` holds it, in bf16 alone
   (the served dtype; an fp32 decode takes the model's plain path), and
@@ -34,15 +40,18 @@ import torch
 from . import decode_attention as _da
 from . import flash_attention as _fa
 from . import gbdt_predict as _gp
+from . import mamba2_scan as _m2
 from . import mamba_scan as _ms
-from .ref import flash_attention_ref, gbdt_predict_ref, mamba_scan_ref
+from .ref import (flash_attention_ref, gbdt_predict_ref, mamba2_scan_ref,
+                  mamba_scan_ref)
 
 __all__ = ["decode_attention", "flash_attention", "gbdt_predict",
-           "gbdt_predict_model", "mamba_scan"]
+           "gbdt_predict_model", "mamba2_scan", "mamba_scan"]
 
 
 def _check(name: str, t, dtype: torch.dtype, ndim: int,
-           device: torch.device, anchor: str = "X") -> None:
+           device: torch.device, anchor: str = "X",
+           contiguous: bool = True) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got "
                         f"{type(t).__name__}")
@@ -53,7 +62,7 @@ def _check(name: str, t, dtype: torch.dtype, ndim: int,
                          f"{tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, {anchor} is on {device}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
@@ -209,6 +218,55 @@ def mamba_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = torch.empty_like(u)
     h_last = torch.empty((B, Di, N), dtype=f32, device=dev)
     _ms.launch(u, dt, A, Bm, Cm, D, y, h_last)
+    return y, h_last
+
+
+def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor):
+    """A Mamba-2 prompt's selective scan from a zero state, every head and
+    B/C group at once.
+
+    x: (B, L, H, P); Bm, Cm: (B, L, G, N), head j reading group
+    ``j // (H / G)``; all three in one dtype, float32 or bfloat16, each
+    with its last two dims contiguous (strided views of one projection
+    are taken as they are); dt: (B, L, H) float32, rounded to x's dtype
+    before use; A, D: (H,) float32; dt, A and D contiguous; all on one
+    device; ``H % G == 0``, ``N <= 64``. Returns (y (B, L, H, P) in x's
+    dtype, one rounding of the fp32 sum; h_last (B, H, P, N) float32). On
+    the CPU the plain version runs :func:`mamba_scan` once a group."""
+    dev = _device_of("x", x)
+    dtype = x.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be torch.float32 or torch.bfloat16, got "
+                        f"{dtype}")
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+        _check(name, t, dtype, 4, dev, anchor="x", contiguous=False)
+    _check("dt", dt, torch.float32, 3, dev, anchor="x")
+    _check("A", A, torch.float32, 1, dev, anchor="x")
+    _check("D", D, torch.float32, 1, dev, anchor="x")
+    _forward_only(x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, D=D)
+    B, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    for name, t, want in (("dt", dt, (B, L, H)), ("A", A, (H,)),
+                          ("D", D, (H,)), ("Bm", Bm, (B, L, G, N)),
+                          ("Cm", Cm, (B, L, G, N))):
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {want}")
+    _positive(B=B, L=L, H=H, P=P, G=G, N=N)
+    if H % G:
+        raise ValueError(f"{H} heads do not split into {G} groups of B "
+                         "and C")
+    if N > _m2.MAX_STATE:
+        raise ValueError(f"state size {N} exceeds the kernel's maximum of "
+                         f"{_m2.MAX_STATE}")
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+        if not t[0, 0].is_contiguous():
+            raise ValueError(f"{name}'s last two dims must be contiguous")
+    if dev.type == "cpu":
+        return mamba2_scan_ref(x, dt, A, Bm, Cm, D, scan=mamba_scan)
+    y = torch.empty((B, L, H, P), dtype=dtype, device=dev)
+    h_last = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    _m2.launch(x, dt, A, Bm, Cm, D, y, h_last)
     return y, h_last
 
 

@@ -16,6 +16,9 @@ the per-row crossover measurement.
 versions of the CUDA attention and selective-scan kernels, the same math
 in fp32 written as whole-tensor torch ops. Their summation orders differ
 from the kernels', so the two agree to a tolerance, not bit for bit.
+:func:`mamba2_scan_ref` is the Mamba-2 scan kernel's plain version: the
+Mamba-1 scan of each B/C group's channels, each head's dt, A and D
+repeated over its channels.
 
 :func:`gqa_ref` is the model's plain attention over a key mask (the
 reference's ``_sdpa``), and with the decode mask the plain version of the
@@ -34,8 +37,8 @@ import torch
 
 __all__ = ["LaneSchedule", "NEG_INF", "flash_attention_ref",
            "gbdt_predict_numpy", "gbdt_predict_ref", "gqa_ref",
-           "grouped_scores", "lane_schedule", "lane_sum", "mamba_scan_ref",
-           "pairwise_program"]
+           "grouped_scores", "lane_schedule", "lane_sum", "mamba2_scan_ref",
+           "mamba_scan_ref", "pairwise_program"]
 
 #: The reference's mask value: large and negative, finite in fp32 and bf16.
 NEG_INF = -2.0 ** 30
@@ -279,3 +282,37 @@ def mamba_scan_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
     y = torch.stack(ys, dim=1) + uf * D.float()[None, None, :]
     return y, h
+
+
+def mamba2_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
+                    scan=mamba_scan_ref):
+    """A Mamba-2 prompt's scan from a zero state, as Mamba-1 scans of its
+    ``H * P`` channels: dt rounded to x's dtype (as the reference casts it
+    to u's dtype) and, like A and D, repeated over each head's P channels,
+    every state row the head's A; one ``scan`` (a Mamba-1 scan with
+    :func:`mamba_scan_ref`'s arguments) a group, over the channels of the
+    group's heads with its own B and C, on fp32 contiguous copies.
+
+    x: (B, L, H, P); dt: (B, L, H) fp32; A, D: (H,) fp32; Bm, Cm:
+    (B, L, G, N), head j reading group ``j // (H / G)``. Returns (y
+    (B, L, H, P) in x's dtype, h_last (B, H, P, N) fp32)."""
+    B, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Di = H * P
+    xs = x.flatten(2)
+    dt_c = dt.to(x.dtype).float().repeat_interleave(P, dim=-1)
+    A_c = A.repeat_interleave(P)[:, None].expand(Di, N).contiguous()
+    D_c = D.repeat_interleave(P)
+    c = Di // G
+    ys, hs = [], []
+    for g in range(G):
+        ch = slice(g * c, (g + 1) * c)
+        y, h = scan(xs[..., ch].float().contiguous(),
+                    dt_c[..., ch].contiguous(), A_c[ch].contiguous(),
+                    Bm[:, :, g].float().contiguous(),
+                    Cm[:, :, g].float().contiguous(), D_c[ch].contiguous())
+        ys.append(y)
+        hs.append(h)
+    y = torch.cat(ys, dim=-1).reshape(B, L, H, P).to(x.dtype)
+    return y, torch.cat(hs, dim=1).reshape(B, H, P, N)

@@ -8,12 +8,12 @@ Mamba-2 (scalar A per head, outer-product state update):
 
 A prompt (``state is None`` and L > 1) takes one of two routes, chosen by
 the ``impl`` argument alone. ``"flash"`` (serving's route, the default)
-runs the scan kernel (:func:`repro_torch.kernels.ops.mamba_scan`) on fp32
-inputs in both blocks: Mamba-1 as the reference's ``attn_impl="flash"``
-route does, and Mamba-2 as the Mamba-1 scan of its ``H * Pd`` channels
-with each head's dt, A and D repeated over the head's ``Pd`` channels (the
-reference runs its plain recurrence there), one call for each of its
-``mamba_ngroups`` groups of B and C. The kernel is forward-only.
+runs a scan kernel: Mamba-1 its fp32 inputs through
+:func:`repro_torch.kernels.ops.mamba_scan`, as the reference's
+``attn_impl="flash"`` route does; Mamba-2 (the reference runs its plain
+recurrence there) every head and group of B and C in one call of
+:func:`repro_torch.kernels.ops.mamba2_scan`, x, B and C in the activation
+dtype as the in-projection left them. The kernels are forward-only.
 ``"xla"`` (training's route) runs the plain recurrences
 :func:`mamba1_scan` and :func:`mamba2_scan`, differentiable, over
 rematerialised 256-step chunks as the reference's ``_chunked_scan``.
@@ -328,22 +328,23 @@ def mamba2_block(p: Mamba2, x, cfg, state=None, impl: str = "flash"):
     ``mamba`` span (:mod:`repro_torch.obs`) holding a ``mamba.scan``
     span around the scan.
 
-    On the ``"flash"`` route a prompt goes through the scan kernel as a
-    Mamba-1 scan over the ``Di = H * Pd`` channels: dt rounded to the
-    activation dtype (the reference casts it to u's dtype before its scan)
-    and repeated over each head's Pd channels, ``A = -exp(A_log)`` and D
-    likewise, every state row the head's A. One rounding differs from the
-    reference's recurrence: it rounds each step's ``h·C`` to u's dtype
-    before adding ``D⊙u``, the kernel adds them in fp32. At fp32 that is no difference; in bf16 it
-    stays inside the output's last rounding (one ulp).
+    On the ``"flash"`` route a prompt goes through the Mamba-2 scan
+    kernel (:func:`repro_torch.kernels.ops.mamba2_scan`), one launch for
+    every head and group: dt rounded to the activation dtype (the
+    reference casts it to u's dtype before its scan), one decay a head
+    and step, y returned in the activation dtype. On the card each such
+    scan's launch counts one ``mamba.scan_kernel`` (:mod:`repro_torch.obs`).
+    One rounding differs from the reference's recurrence: it rounds each
+    step's ``h·C`` to u's dtype before adding ``D⊙u``, the kernel adds
+    them in fp32. At fp32 that is no difference; in bf16 it stays inside
+    the output's last rounding (one ulp).
 
     Under a mesh whose ``model`` axis divides the heads, everything from
     the second split to the gated norm runs on each rank's heads
     (:func:`_mamba2_sharded`).
 
     With ``cfg.mamba_ngroups`` G > 1, B and C are (B, L, G, N): head j
-    reads group ``j // (H / G)``, the kernel's route scans each group's
-    heads in a call of its own, and the gated norm normalises each
+    reads group ``j // (H / G)``, and the gated norm normalises each
     group's Di / G channels apart. No mesh takes G > 1."""
     check_impl(impl)
     with obs.span("mamba"):
@@ -390,7 +391,14 @@ def _mamba2_core(xs, Bm, Cm, dt_raw, z, dt_bias, A_log, D, norm_w, h0, cfg,
     A = -torch.exp(A_log)
     with obs.span("mamba.scan"):
         if impl == "flash" and h0 is None and L > 1:
-            y, h_last = _kernel_scan(xs, dt, A, Bm, Cm, D, dtype, Pd)
+            # the kernel reads the projection's column views as they are;
+            # a mesh's local shards may come with other strides
+            x, Bg, Cg = (t if t.stride(-1) == 1 else t.contiguous()
+                         for t in (xs, Bm, Cm))
+            if Bm.dim() == 3:
+                Bg, Cg = Bg[:, :, None], Cg[:, :, None]
+            y, h_last = kops.mamba2_scan(x.unflatten(-1, (H, Pd)),
+                                         dt.contiguous(), A, Bg, Cg, D)
         else:
             y, h_last = mamba2_scan(xs.reshape(B, L, H, Pd), dt, A, Bm, Cm,
                                     D, h0)
@@ -400,39 +408,6 @@ def _mamba2_core(xs, Bm, Cm, dt_raw, z, dt_bias, A_log, D, norm_w, h0, cfg,
         return norm(y.unflatten(-1, (G, Di // G)),
                     norm_w.view(G, Di // G), cfg.norm_eps).flatten(-2), h_last
     return norm(y, norm_w, cfg.norm_eps), h_last
-
-
-def _kernel_scan(xs, dt, A, Bm, Cm, D, dtype, Pd):
-    """A prompt's scan through the kernel as the Mamba-1 scan of its
-    ``H * Pd`` channels (see :func:`mamba2_block`), one call for B and C
-    of (B, L, N), else one call for each group's heads with its own B and
-    C (B, L, G, N): the kernel takes one B and C for all its channels.
-    Returns (y (B, L, Di) fp32, h_last (B, H, Pd, N) fp32)."""
-    B, L, Di = xs.shape
-    N = Bm.shape[-1]
-    H = Di // Pd
-    dt_c = dt.to(dtype).float().repeat_interleave(Pd, dim=-1)
-    A_c = A.repeat_interleave(Pd)[:, None].expand(Di, N).contiguous()
-    D_c = D.repeat_interleave(Pd)
-    if Bm.dim() == 3:
-        y, h_last = kops.mamba_scan(xs.float().contiguous(), dt_c, A_c,
-                                    Bm.float().contiguous(),
-                                    Cm.float().contiguous(), D_c)
-        return y, h_last.reshape(B, H, Pd, N)
-    G = Bm.shape[2]
-    c = Di // G
-    ys, hs = [], []
-    for g in range(G):
-        ch = slice(g * c, (g + 1) * c)
-        y, h = kops.mamba_scan(xs[..., ch].float().contiguous(),
-                               dt_c[..., ch].contiguous(),
-                               A_c[ch].contiguous(),
-                               Bm[:, :, g].float().contiguous(),
-                               Cm[:, :, g].float().contiguous(),
-                               D_c[ch].contiguous())
-        ys.append(y)
-        hs.append(h)
-    return torch.cat(ys, dim=-1), torch.cat(hs, dim=1).reshape(B, H, Pd, N)
 
 
 def _mamba2_sharded(p: Mamba2, xs, Bm, Cm, dt_raw, z, h0, cfg, impl,

@@ -40,6 +40,7 @@ from repro.models import attention as ref_attn, mlp as ref_mlp
 from repro.models import ssm as ref_ssm
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa, mamba_scan as ms
+from repro_torch.kernels import mamba2_scan as m2
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn, mlp, ssm
 
@@ -453,9 +454,14 @@ def test_scan_wrapper_refusals(change, err, match):
 
 
 def test_cpu_never_launches_the_kernels():
-    before = (fa.launches, ms.launches)
+    before = (fa.launches, ms.launches, m2.launches)
     _port_attn(*_qkv(10, 1, 20, 4, 2, 16))
     _port_scan(_scan_inputs(10, 1, 10, 8, 4))
-    assert (fa.launches, ms.launches) == before
+    u, dt, A, Bm, Cm, D = (torch.from_numpy(a) for a in
+                           _scan_inputs(10, 1, 10, 8, 4))
+    ops.mamba2_scan(u.unflatten(-1, (2, 4)), dt[..., :2].contiguous(),
+                    A[:2, 0].contiguous(), Bm[:, :, None], Cm[:, :, None],
+                    D[:2].contiguous())
+    assert (fa.launches, ms.launches, m2.launches) == before
     if not torch.cuda.is_available():
-        assert before == (0, 0)
+        assert before == (0, 0, 0)

@@ -5,7 +5,9 @@
 At their defaults the fields leave today's computation as it was: the
 pieces this form touched (the hybrid decode loop, the Mamba-2 block's
 kernel route, the gated MLP, RoPE, the attention's input width) are held
-bit for bit to the operations they ran before it. Set, the form records
+bit for bit to the operations they ran before it. ``ops.mamba2_scan``'s
+plain route is the Mamba-2 block's former per-group Mamba-1 route bit for
+bit (its card tests are ``tests/test_torch_mamba2_scan.py``'s). Set, the form records
 its spans (``shared``, ``shared.adapter``, ``mamba``, ``mamba.scan``) and
 the ``mamba.state_bytes`` counter, changes no bit with them on, counts
 its parameters, and refuses a mesh, naming the fields. The form's
@@ -138,6 +140,149 @@ def test_default_mamba2_kernel_route_is_the_one_call_before_it():
                            cfg.norm_eps)
     assert torch.equal(got, want)
     assert torch.equal(h, h_want.reshape(B, H, Pd, N))
+
+
+def _kernel_scan_before(xs, dt, A, Bm, Cm, D, dtype, Pd):
+    """The Mamba-2 prompt's scan as the block ran it before
+    ``ops.mamba2_scan``: the Mamba-1 scan of its channels, one call for B
+    and C of (B, L, N), else one a group."""
+    B, L, Di = xs.shape
+    N = Bm.shape[-1]
+    H = Di // Pd
+    dt_c = dt.to(dtype).float().repeat_interleave(Pd, dim=-1)
+    A_c = A.repeat_interleave(Pd)[:, None].expand(Di, N).contiguous()
+    D_c = D.repeat_interleave(Pd)
+    if Bm.dim() == 3:
+        y, h_last = kops.mamba_scan(xs.float().contiguous(), dt_c, A_c,
+                                    Bm.float().contiguous(),
+                                    Cm.float().contiguous(), D_c)
+        return y, h_last.reshape(B, H, Pd, N)
+    G = Bm.shape[2]
+    c = Di // G
+    ys, hs = [], []
+    for g in range(G):
+        ch = slice(g * c, (g + 1) * c)
+        y, h = kops.mamba_scan(xs[..., ch].float().contiguous(),
+                               dt_c[..., ch].contiguous(),
+                               A_c[ch].contiguous(),
+                               Bm[:, :, g].float().contiguous(),
+                               Cm[:, :, g].float().contiguous(),
+                               D_c[ch].contiguous())
+        ys.append(y)
+        hs.append(h)
+    return torch.cat(ys, dim=-1), torch.cat(hs, dim=1).reshape(B, H, Pd, N)
+
+
+def _scan_views(seed, Bsz, L, H, Pd, G, N, dtype):
+    """x, B and C as the block's strided views of one conv output xBC,
+    B and C (B, L, G, N); dt after the softplus, A and D per head."""
+    g = torch.Generator().manual_seed(seed)
+    Di = H * Pd
+    xBC = torch.randn(Bsz, L, Di + 2 * G * N, generator=g).to(dtype)
+    xs, Bm, Cm = common.split_last(xBC, (Di, G * N, G * N))
+    dt = F.softplus(torch.randn(Bsz, L, H, generator=g) - 1.0)
+    A = -torch.linspace(1.0, 8.0, H)
+    D = torch.linspace(0.5, 1.5, H)
+    return (xs, dt, A, Bm.unflatten(-1, (G, N)), Cm.unflatten(-1, (G, N)),
+            D)
+
+
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("L", [2, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["views", "contiguous"])
+def test_mamba2_scan_plain_route_is_the_kernel_route_before_it(G, L, dtype,
+                                                               layout):
+    """``ops.mamba2_scan`` on the CPU: the block's former per-group
+    Mamba-1 route bit for bit (its fp32 y rounded once to the activation
+    dtype), on x, B and C as strided views of xBC or as contiguous
+    copies."""
+    H, Pd, N = 4, 8, 16
+    xs, dt, A, Bm, Cm, D = _scan_views(5, 2, L, H, Pd, G, N, dtype)
+    assert not xs.is_contiguous() and not Bm.is_contiguous()
+    if layout == "contiguous":
+        xs, Bm, Cm = xs.contiguous(), Bm.contiguous(), Cm.contiguous()
+    y, h = kops.mamba2_scan(xs.unflatten(-1, (H, Pd)), dt, A, Bm, Cm, D)
+    want_y, want_h = _kernel_scan_before(xs, dt, A, Bm, Cm, D, dtype, Pd)
+    assert y.dtype == dtype and y.shape == (2, L, H, Pd)
+    assert torch.equal(y.flatten(2), want_y.to(dtype))
+    assert torch.equal(h, want_h)
+    if G == 1:   # B and C of (B, L, N): the one call before
+        want_y, want_h = _kernel_scan_before(xs, dt, A, Bm[:, :, 0],
+                                             Cm[:, :, 0], D, dtype, Pd)
+        assert torch.equal(y.flatten(2), want_y.to(dtype))
+        assert torch.equal(h, want_h)
+
+
+@pytest.mark.parametrize("G,L", [(1, 5), (2, 40), (4, 17)])
+def test_mamba2_scan_plain_route_matches_the_recurrence(G, L):
+    """... and agrees with ``ssm.mamba2_scan``'s recurrence in fp32 within
+    the scan tests' tolerance."""
+    H, Pd, N = 8, 4, 16
+    xs, dt, A, Bm, Cm, D = _scan_views(6, 2, L, H, Pd, G, N, torch.float32)
+    u = xs.unflatten(-1, (H, Pd))
+    y, h = kops.mamba2_scan(u, dt, A, Bm, Cm, D)
+    want_y, want_h = ssm.mamba2_scan(u, dt, A, Bm, Cm, D)
+    torch.testing.assert_close(y, want_y, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(h, want_h, atol=2e-5, rtol=2e-5)
+
+
+def test_mamba2_scan_plain_route_calls_the_mamba1_scan_once_a_group(
+        monkeypatch):
+    calls = []
+    scan = kops.mamba_scan
+    monkeypatch.setattr(kops, "mamba_scan",
+                        lambda *a: calls.append(a[0].shape) or scan(*a))
+    xs, dt, A, Bm, Cm, D = _scan_views(7, 1, 9, 6, 4, 3, 8, torch.float32)
+    kops.mamba2_scan(xs.unflatten(-1, (6, 4)), dt, A, Bm, Cm, D)
+    assert calls == [(1, 9, 8)] * 3
+
+
+def _refused(args, change):
+    xs, dt, A, Bm, Cm, D = args
+    x = xs.unflatten(-1, (4, 8))
+    kw = dict(x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, D=D)
+    return change(kw) or kw
+
+
+@pytest.mark.parametrize("change,err,match", [
+    (lambda k: k.update(x=k["x"].half()), TypeError, "x must be"),
+    (lambda k: k.update(Bm=k["Bm"].double()), TypeError, "Bm must be"),
+    (lambda k: k.update(dt=k["dt"].bfloat16()), TypeError, "dt must be"),
+    (lambda k: k.update(Bm=k["Bm"].bfloat16(), Cm=k["Cm"].bfloat16()),
+     TypeError, "Bm must be"),
+    (lambda k: k.update(dt=k["dt"][:, :-1].contiguous()), ValueError,
+     "dt shape"),
+    (lambda k: k.update(A=k["A"][:3].contiguous()), ValueError, "A shape"),
+    (lambda k: k.update(Cm=k["Cm"][:, :, :1]), ValueError, "Cm shape"),
+    (lambda k: k.update(Bm=k["Bm"][:, :, :, :1], Cm=k["Cm"][:, :, :, :1]),
+     ValueError, "Bm's last two dims"),
+    (lambda k: k.update(Bm=torch.zeros(2, 5, 3, 16),
+                        Cm=torch.zeros(2, 5, 3, 16)), ValueError,
+     "4 heads do not split into 3 groups"),
+    (lambda k: k.update(Bm=torch.zeros(2, 5, 2, 65),
+                        Cm=torch.zeros(2, 5, 2, 65)), ValueError,
+     "state size 65"),
+    (lambda k: k.update(x=k["x"].transpose(2, 3).contiguous().transpose(
+        2, 3)), ValueError, "x's last two dims"),
+    (lambda k: k.update(D=k["D"].requires_grad_()), ValueError,
+     "forward-only"),
+])
+def test_mamba2_scan_wrapper_refusals(change, err, match):
+    kw = _refused(_scan_views(8, 2, 5, 4, 8, 2, 16, torch.float32), change)
+    with pytest.raises(err, match=match):
+        kops.mamba2_scan(**kw)
+
+
+def test_the_scan_kernel_counter_counts_the_card_alone(recording):
+    """``mamba.scan_kernel`` counts the Mamba-2 prompt scans that ran in
+    the kernel; on the CPU (the plain version) it stays unset."""
+    params = _params(ZAMBA)
+    obs.enable()
+    model.prefill(ZAMBA, params, _tokens(ZAMBA, (B, S)), MAX_SEQ,
+                  device="cpu")
+    obs.disable()
+    assert "mamba.scan_kernel" not in obs.drain().counts
 
 
 def test_default_mlp_rope_and_attention_are_as_before():
