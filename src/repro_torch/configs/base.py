@@ -18,9 +18,11 @@ import dataclasses
 import math
 from typing import Optional
 
-#: the fields the port adds for Zamba2-7B at its published widths
+#: the fields the port adds for Zamba2-7B and FalconMamba-7B at their
+#: published widths
 PORT_FIELDS = ("hidden_act", "mamba_ngroups", "shared_block",
-               "num_mem_blocks", "adapter_rank", "hybrid_layer_ids")
+               "num_mem_blocks", "adapter_rank", "hybrid_layer_ids",
+               "mixer_rms_eps", "residual_in_fp32")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,10 +79,11 @@ class ModelConfig:
     # microbatch gradient-accumulator dtype (bf16 halves the largest
     # training buffer at 1T scale; error ~2^-8 per add, n_microbatch small)
     grad_accum_dtype: str = "float32"
-    # The port's own settings (Zamba2-7B at its published widths): class
-    # attributes, not fields, so that a reference config carries over
-    # field for field; :class:`PortConfig` makes them fields. At these
-    # values every family computes what it computed without them.
+    # The port's own settings (Zamba2-7B and FalconMamba-7B at their
+    # published widths): class attributes, not fields, so that a
+    # reference config carries over field for field; :class:`PortConfig`
+    # makes them fields. At these values every family computes what it
+    # computed without them.
     hidden_act = "silu"                      # gated MLP: silu | gelu (erf)
     mamba_ngroups = 1                        # Mamba-2 B/C groups (Zamba2: 2)
     # the shared block's form: "residual" (the reference's: x + attn,
@@ -93,6 +96,12 @@ class ModelConfig:
     num_mem_blocks = 1                       # shared blocks, taken in turn
     adapter_rank = 0                         # LoRA rank on the MLP's gate_up
     hybrid_layer_ids = ()                    # the layers applications feed
+    # FalconMamba's Mamba-1 mixer: weightless RMS norms over dt's ranks, B
+    # and C after x_proj, with this eps (None: no norms); and the
+    # residual stream held in fp32 (each block's norm reads it rounded to
+    # the activation dtype, the final norm reads it whole)
+    mixer_rms_eps = None
+    residual_in_fp32 = False
 
     @property
     def resolved_head_dim(self) -> int:
@@ -205,8 +214,9 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PortConfig(ModelConfig):
-    """A :class:`ModelConfig` whose port settings (:data:`PORT_FIELDS`,
-    Zamba2-7B's form) are fields: set them here, or with
+    """A :class:`ModelConfig` whose port settings (:data:`PORT_FIELDS`:
+    Zamba2-7B's form, FalconMamba-7B's mixer norms and fp32 residual) are
+    fields: set them here, or with
     :func:`with_port_fields` on a config of the registry."""
     hidden_act: str = "silu"
     mamba_ngroups: int = 1
@@ -214,6 +224,8 @@ class PortConfig(ModelConfig):
     num_mem_blocks: int = 1
     adapter_rank: int = 0
     hybrid_layer_ids: tuple = ()
+    mixer_rms_eps: Optional[float] = None
+    residual_in_fp32: bool = False
 
 
 def with_port_fields(cfg: ModelConfig, **fields) -> PortConfig:

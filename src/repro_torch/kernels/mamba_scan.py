@@ -8,7 +8,8 @@ nothing here runs at import time.
 
 :data:`launches` counts kernel launches: :func:`launch` adds one each time
 the kernel is launched, and nothing else touches it except a caller
-resetting it to 0.
+resetting it to 0. With :mod:`repro_torch.obs` on, each launch also counts
+one ``mamba.scan_kernel``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import functools
 
 import torch
 
+from .. import obs
 from .build import library
 
 __all__ = ["MAX_STATE", "build", "launch"]
@@ -59,3 +61,4 @@ def launch(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         msg = lib.mamba_scan_error_string(err).decode()
         raise RuntimeError(f"mamba_scan kernel launch failed: {msg}")
     launches += 1
+    obs.count("mamba.scan_kernel", 1)

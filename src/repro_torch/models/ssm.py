@@ -205,34 +205,57 @@ def mamba1_scan(u, dt, A, Bm, Cm, D, h0=None):
     return y, h
 
 
+def _unit_rms(x, eps):
+    """``x`` over its last dim to unit RMS, with no weight: computed in
+    fp32 and rounded back to x's dtype, as transformers' ``rms_forward``
+    (FalconMamba's mixer norms), in a ``norm`` span. ``F.rms_norm``
+    upcasts a bf16 input to fp32 itself and is one fused launch on the
+    card; the fp32 steps spelled out take seven, and three norms a layer
+    would then be a third of a prefill's launches."""
+    with obs.span("norm"):
+        return F.rms_norm(x, (x.shape[-1],), eps=eps)
+
+
 def mamba1_block(p: Mamba1, x, cfg, state=None, impl: str = "flash"):
     """x: (B, L, D). state: None, or dict(conv, ssm) for decode; a prompt
-    takes the route ``impl`` names. Returns (out, new_state)."""
+    takes the route ``impl`` names. Returns (out, new_state), as one
+    ``mamba`` span (:mod:`repro_torch.obs`) holding a ``mamba.scan``
+    span around the scan.
+
+    With ``cfg.mixer_rms_eps`` set (FalconMamba), dt's ranks, B and C
+    are each normed to unit RMS (:func:`_unit_rms`) after ``x_proj``,
+    before ``dt_proj`` and the scan, on every route."""
     check_impl(impl)
-    L = x.shape[1]
-    Di, N = cfg.d_inner, cfg.ssm_state
-    R = _dt_rank(cfg)
-    xz = matmul(x, p.in_proj.to(x.dtype))
-    xs, z = split_last(xz, (Di, Di))
-    conv_state = state["conv"] if state is not None else None
-    xs, new_conv = causal_conv1d(xs, p.conv_w, p.conv_b, conv_state)
-    xs = F.silu(xs)
-    proj = matmul(xs, p.x_proj.to(xs.dtype))
-    dt_raw, Bm, Cm = proj[..., :R], proj[..., R:R + N], proj[..., R + N:]
-    dt = matmul(dt_raw, p.dt_proj.to(xs.dtype))
-    dt = F.softplus(dt.float() + p.dt_bias[None, None, :])
-    A = -torch.exp(p.A_log)
-    if impl == "flash" and state is None and L > 1:
-        # B and C are column slices of one projection: made contiguous
-        y, h_last = kops.mamba_scan(xs.float(), dt, A,
-                                    Bm.float().contiguous(),
-                                    Cm.float().contiguous(), p.D)
-    else:
-        h0 = state["ssm"] if state is not None else None
-        y, h_last = mamba1_scan(xs, dt, A, Bm, Cm, p.D, h0)
-    y = y.to(x.dtype) * F.silu(z)
-    return (residual(matmul(y, p.out_proj.to(x.dtype))),
-            {"conv": new_conv, "ssm": h_last})
+    with obs.span("mamba"):
+        L = x.shape[1]
+        Di, N = cfg.d_inner, cfg.ssm_state
+        R = _dt_rank(cfg)
+        xz = matmul(x, p.in_proj.to(x.dtype))
+        xs, z = split_last(xz, (Di, Di))
+        conv_state = state["conv"] if state is not None else None
+        xs, new_conv = causal_conv1d(xs, p.conv_w, p.conv_b, conv_state)
+        xs = F.silu(xs)
+        proj = matmul(xs, p.x_proj.to(xs.dtype))
+        dt_raw, Bm, Cm = proj[..., :R], proj[..., R:R + N], proj[..., R + N:]
+        if cfg.mixer_rms_eps is not None:
+            dt_raw, Bm, Cm = (_unit_rms(t, cfg.mixer_rms_eps)
+                              for t in (dt_raw, Bm, Cm))
+        dt = matmul(dt_raw, p.dt_proj.to(xs.dtype))
+        dt = F.softplus(dt.float() + p.dt_bias[None, None, :])
+        A = -torch.exp(p.A_log)
+        with obs.span("mamba.scan"):
+            if impl == "flash" and state is None and L > 1:
+                # B and C are column slices of one projection: made
+                # contiguous
+                y, h_last = kops.mamba_scan(xs.float(), dt, A,
+                                            Bm.float().contiguous(),
+                                            Cm.float().contiguous(), p.D)
+            else:
+                h0 = state["ssm"] if state is not None else None
+                y, h_last = mamba1_scan(xs, dt, A, Bm, Cm, p.D, h0)
+        y = y.to(x.dtype) * F.silu(z)
+        return (residual(matmul(y, p.out_proj.to(x.dtype))),
+                {"conv": new_conv, "ssm": h_last})
 
 
 # ---------------------------------------------------------------------- #

@@ -1,7 +1,13 @@
 """Attention-free Mamba-1 LM (falcon-mamba-7b): embed → N mamba blocks →
 head. ``forward`` takes the scan route by its ``impl`` argument
 (``"xla"`` to train) and, with ``cfg.remat == "full"``, rematerialises
-each layer body."""
+each layer body.
+
+With ``cfg.residual_in_fp32`` (FalconMamba) the residual stream is fp32,
+as transformers' ``FalconMambaBlock`` keeps it: each block's norm reads
+the stream rounded to the activation dtype, the mixer's output is added
+to the fp32 stream, and the final norm reads the stream whole and its
+output is rounded to the activation dtype before the LM head."""
 from __future__ import annotations
 
 import torch
@@ -66,17 +72,30 @@ def cache_specs(cfg):
             "ssm": P(None, FSDP, TP, None)}
 
 
+def _embed(params: MambaLM, tokens, cfg):
+    """The residual stream's start: the tokens' embeddings, in fp32 with
+    ``cfg.residual_in_fp32``."""
+    x = embed_tokens(params.embed, tokens, cfg)
+    return x.float() if cfg.residual_in_fp32 else x
+
+
+def _norm(lp: MambaLayer, x, cfg):
+    """A block's norm of the stream x, in the activation dtype."""
+    return rms_norm(x.to(dtype_of(cfg.activation_dtype)), lp.norm,
+                    cfg.norm_eps)
+
+
 def _head(params: MambaLM, x, cfg):
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return unembed(params.embed, x, cfg).float()
+    return unembed(params.embed, x.to(dtype_of(cfg.activation_dtype)),
+                   cfg).float()
 
 
 def forward(params: MambaLM, tokens, cfg, impl: str = "flash"):
-    x = embed_tokens(params.embed, tokens, cfg)
+    x = _embed(params, tokens, cfg)
 
     def body(x, lp):
-        h, _ = mamba1_block(lp.mamba, rms_norm(x, lp.norm, cfg.norm_eps), cfg,
-                            impl=impl)
+        h, _ = mamba1_block(lp.mamba, _norm(lp, x, cfg), cfg, impl=impl)
         return x + h
 
     for lp in params.layers:
@@ -105,11 +124,12 @@ def decode_step(params: MambaLM, cache, tokens, pos, cfg):
     """tokens: (B, 1). Returns (logits, cache); the cache tensors are
     updated in place."""
     del pos  # recurrent state carries position implicitly
-    x = embed_tokens(params.embed, tokens, cfg)
+    x = _embed(params, tokens, cfg)
     for i, lp in enumerate(params.layers):
+        h_in = _norm(lp, x, cfg)
         h, st = mamba1_block(
-            lp.mamba, rms_norm(x, lp.norm, cfg.norm_eps), cfg,
-            state={"conv": cache["conv"][i].to(x.dtype),
+            lp.mamba, h_in, cfg,
+            state={"conv": cache["conv"][i].to(h_in.dtype),
                    "ssm": cache["ssm"][i]})
         x = x + h
         assign(cache["conv"], (i,), st["conv"])
@@ -119,13 +139,12 @@ def decode_step(params: MambaLM, cache, tokens, pos, cfg):
 
 def prefill(params: MambaLM, tokens, cfg, max_seq: int,
             cache_dtype=torch.bfloat16, impl: str = "flash"):
-    x = embed_tokens(params.embed, tokens, cfg)
+    x = _embed(params, tokens, cfg)
     cache = mesh_zeros(lambda dev: init_cache(cfg, x.shape[0], max_seq,
                                               cache_dtype, dev),
                        podify(cache_specs(cfg)), x.device)
     for i, lp in enumerate(params.layers):
-        h, st = mamba1_block(lp.mamba, rms_norm(x, lp.norm, cfg.norm_eps),
-                             cfg, impl=impl)
+        h, st = mamba1_block(lp.mamba, _norm(lp, x, cfg), cfg, impl=impl)
         x = x + h
         assign(cache["conv"], (i,), st["conv"])
         assign(cache["ssm"], (i,), st["ssm"])
