@@ -33,7 +33,9 @@ card, in phases:
    phases 11-15's among them (Whisper's bidirectional encoder and its
    cross-attention over 1500 frames, head dim 112, Mixtral's window of
    4096 at 6144 tokens, the 7168-channel, 64-state scan of Zamba2's
-   Mamba-2 prefill), each case printed with its route (fp32 2e-5; bf16 one
+   Mamba-2 prefill, and ``falcon-mamba-7b.prefill``'s scans: one prompt
+   of 512 to 8192 tokens at Di 8192, N 16), each case printed with its
+   route (fp32 2e-5; bf16 one
    output ulp, 2**-7 relative, on the SIMT route, and 2**-9 max|v| more on
    the wgmma route, which rounds p to bf16);
 6. their per-call times at the serving shapes, beside the plain versions,
@@ -50,7 +52,12 @@ card, in phases:
    as served: checked against its plain version, bit for bit against the
    route it replaced, and timed (median of 20) beside that route's two
    Mamba-1 calls, the plain version and ``perfbench/counts/hybrid.scan``'s
-   bound;
+   bound; then K3's Mamba-1 kernel at ``falcon-mamba-7b.prefill``'s
+   scans (B 1, L 512 to 8192, Di 8192, N 16, fp32 as the block passes
+   them; median of 20) beside ``perfbench/counts/ssm.scan``'s bound (the
+   benchmark's ``mamba1_scan_roofline.prefill`` prices the same), the
+   fp32 bytes' bound and the floor of its exps (one a state element and
+   step, on the SFUs, which no bound above prices);
 7. Mistral-NeMo-12B served at full width and depth (random bf16 weights
    from a seed): 4 prompts of 2048 tokens, then 32 greedy decode steps
    through ``greedy_generate``; every flash-attention launch of it must
@@ -240,6 +247,12 @@ FAMILY_ATTN = (
 )
 #: ... and zamba2-7b's Mamba-2 prefill as a Mamba-1 scan (B, L, Di, N)
 FAMILY_SCAN = (4, 2048, 7168, 64)
+#: falcon-mamba-7b.prefill's K3 calls (B, L, Di, N): one prompt a
+#: prefill at the prefill ladder's lengths, FalconMamba-7B's Di and N
+FALCON_SCAN = tuple((1, L, 8192, 16) for L in (512, 1024, 2048, 4096,
+                                                8192))
+#: exp2 results a clock an SM on the special-function units (sm_90: 16)
+SFU_EXPS_PER_CLOCK_SM = 16
 #: Zamba2-7B's Mamba-2 layer (H, P, G, N) and the Mamba-2 route's (B, L):
 #: the prefill cell's prompts at B 1, the decode cell's batch prefill
 MAMBA2_LAYER = (112, 64, 2, 64)
@@ -1069,20 +1082,23 @@ def _kernels_vs_plain(dev, fa, ops, ref) -> dict:
               f"Hkv={Hkv} hd={hd} {kw} bf16 [{route}]: {err:.3e} (atol "
               f"{tol[0]:.3e})", flush=True)
         del q, k, v
-    errs = {}
-    for shape in SCAN_SWEEP + (FAMILY_SCAN, SERVE_SCAN):
+    errs, h_errs = {}, {}
+    # SERVE_SCAN last: phase 6 times its inputs
+    for shape in SCAN_SWEEP + (FAMILY_SCAN,) + FALCON_SCAN + (SERVE_SCAN,):
         args = _scan_inputs(3, *shape, dev)
         y, h = ops.mamba_scan(*args)
         wy, wh = ref.mamba_scan_ref(*args)
         torch.cuda.synchronize()
         errs[shape] = _close(y, wy, F32_TOL, f"scan y {shape}")
-        herr = _close(h, wh, F32_TOL, f"scan h_last {shape}")
+        h_errs[shape] = _close(h, wh, F32_TOL, f"scan h_last {shape}")
         print(f"   scan B,L,Di,N={shape}: y {errs[shape]:.3e}, h_last "
-              f"{herr:.3e}", flush=True)
+              f"{h_errs[shape]:.3e}", flush=True)
         del y, h, wy, wh
     return {"attn_inputs": qkv, "attn_err": attn_err, "scan_inputs": args,
             "scan_err": errs[SERVE_SCAN], "family_attn_err": family_errs,
-            "family_scan_err": errs[FAMILY_SCAN]}
+            "family_scan_err": errs[FAMILY_SCAN],
+            "falcon_scan_err": {s: (errs[s], h_errs[s])
+                                for s in FALCON_SCAN}}
 
 
 def _kernel_times(fa, ops, ref, p5, card, dev) -> dict:
@@ -1170,6 +1186,59 @@ def _kernel_times(fa, ops, ref, p5, card, dev) -> dict:
             "mamba_scan": dict(ms=s_ms, plain_ms=s_plain, library_ms=None,
                                bound_ms=s_bound, bound_by=s_by,
                                ms_batch1=s_one, family_shapes=[family_scan])}
+
+
+def _sfu_exps_per_s(dev) -> float:
+    """The card's exp2 rate: the SFUs' results a clock an SM, times the
+    SMs, times the SM clock's maximum (``nvidia-smi``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return SFU_EXPS_PER_CLOCK_SM * sms * mhz * 1e6
+
+
+def _mamba1_scan_times(ms, ops, p5, dev) -> list:
+    """Phase 6's K3 Mamba-1 kernel (``ops.mamba_scan``) at
+    ``falcon-mamba-7b.prefill``'s scans, checked in phase 5: one launch a
+    call, timed (median of 20, CUDA events) beside the bound of
+    ``perfbench/counts/ssm.scan`` (bf16 x, dt, y, B, C: what
+    ``mamba1_scan_roofline.prefill`` prices), the bound of the fp32
+    bytes the kernel moves (``_scan_bound_ms``), and the floor of its
+    B·L·Di·N exps at the SFU rate."""
+    from perfbench.counts import ssm as scounts
+    exps_per_s = _sfu_exps_per_s(dev)
+    rows = []
+    for shape in FALCON_SCAN:
+        B, L, Di, N = shape
+        args = _scan_inputs(3, *shape, dev)
+        n0 = ms.launches
+        ops.mamba_scan(*args)
+        torch.cuda.synchronize()
+        _check(ms.launches - n0 == 1, "one Mamba-1 scan launch a call")
+        ms_ = _time_cuda_median(lambda: ops.mamba_scan(*args))
+        ops_, nbytes = scounts.scan(B, L, Di, N)
+        bound = max(ops_ / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        fp32_bound, fp32_by = _scan_bound_ms(*shape)
+        exp_floor = B * L * Di * N / exps_per_s * 1e3
+        err, herr = p5["falcon_scan_err"][shape]
+        rows.append(dict(shape=list(shape), ms=ms_, bound_ms=bound,
+                         bound_by="bytes", roofline_pct=100 * bound / ms_,
+                         fp32_bound_ms=fp32_bound, fp32_bound_by=fp32_by,
+                         exp_floor_ms=exp_floor, exps_per_s=exps_per_s,
+                         max_abs_err=err, h_last_max_abs_err=herr))
+        print(f"   mamba_scan (K3, Mamba-1 route) falcon-mamba-7b.prefill "
+              f"B={B} L={L} Di={Di} N={N} fp32: kernel {ms_:.6f}  bound "
+              f"{bound:.6f} (counts/ssm.scan)  roofline "
+              f"{100 * bound / ms_:.2f} %  fp32 bound {fp32_bound:.6f} "
+              f"({fp32_by})  exp floor {exp_floor:.6f} "
+              f"({exps_per_s / 1e12:.3f} T exp2/s)  max abs err y "
+              f"{err:.3e} h_last {herr:.3e}", flush=True)
+        del args
+        _free()
+    return rows
 
 
 def _time_cuda_median(fn, reps: int = 20) -> float:
@@ -2534,6 +2603,7 @@ def main() -> int:
     times = _kernel_times(fa, ops, ref, p5, card, dev)
     decode_times = _decode_attention_times(da, ops, ref, dev)
     mamba2_times = _mamba2_scan_times(m2, ops, ref, dev)
+    mamba1_times = _mamba1_scan_times(ms, ops, p5, dev)
     attn_err, scan_err = p5["attn_err"], p5["scan_err"]
     del p5
     from repro_torch.configs import get_config
@@ -2632,6 +2702,8 @@ def main() -> int:
     rows[1]["launches_by_route_by_phase"] = {
         str(ph): got["by_route"]["flash_attention"]
         for ph, got in served.items() if got["flash_attention"]}
+    # the Mamba-1 scan at falcon-mamba-7b.prefill's calls
+    rows[2]["cell_shapes"] = mamba1_times
     rows.append({
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",

@@ -299,6 +299,25 @@ def test_the_control_reads_far_above_the_ssm_port(tiny):
         assert program <= LIMIT < control
 
 
+def test_the_tiny_cells_check_fails_a_port_without_the_mixer_norms(
+        tiny, monkeypatch):
+    """The harness's own check, at the tiny cell's limit, refuses the
+    port with ``mixer_rms_eps`` unset (the reference keeps the norms)."""
+    import dataclasses
+
+    from perfbench.port import ssm as port_ssm
+    configured = port_ssm.config
+    monkeypatch.setattr(port_ssm, "config", lambda c: dataclasses.replace(
+        configured(c), mixer_rms_eps=None))
+    home, spec = tiny
+    cl = harness.load_cell("tinys.prefill", home, spec)
+    for seed in (1, 2, 3):
+        served = harness.serve_seed(cl, seed, 1.0, "cpu",
+                                    harness.Recorder(False))
+        assert harness.readings(cl, seed, "cpu",
+                                served)["max_logit_gap"] > LIMIT
+
+
 # --------------------------------------------------------------------- #
 #  The configuration, the counts and the scan's roofline
 # --------------------------------------------------------------------- #
