@@ -35,9 +35,9 @@ card, in phases:
    4096 at 6144 tokens, the 7168-channel, 64-state scan of Zamba2's
    Mamba-2 prefill, and ``falcon-mamba-7b.prefill``'s scans: one prompt
    of 512 to 8192 tokens at Di 8192, N 16), each case printed with its
-   route (fp32 2e-5; bf16 one
-   output ulp, 2**-7 relative, on the SIMT route, and 2**-9 max|v| more on
-   the wgmma route, which rounds p to bf16);
+   route (fp32 2e-5; bf16 one output ulp, 2**-7 relative, on the SIMT
+   route, and 2**-9 max|v| more on the wgmma route, which rounds p to
+   bf16);
 6. their per-call times at the serving shapes, beside the plain versions,
    the bound, for attention the SIMT kernel at the same shape and
    PyTorch's own SDPA as a yardstick; then the decode-attention kernel
