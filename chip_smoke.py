@@ -57,7 +57,15 @@ card, in phases:
    them; median of 20) beside ``perfbench/counts/ssm.scan``'s bound (the
    benchmark's ``mamba1_scan_roofline.prefill`` prices the same), the
    fp32 bytes' bound and the floor of its exps (one a state element and
-   step, on the SFUs, which no bound above prices);
+   step, on the SFUs, which no bound above prices); then K5
+   (``mamba2_state_step``: a Mamba-2 decode token, the conv and SSM state
+   updated in place) at Zamba2-7B's layer, B 32 (the decode cell's) and
+   B 1, in bf16 as served: checked against its plain version (the conv
+   state equal; y and the SSM state no further from the plain step in
+   fp32 than twice the bf16 plain step, plus one bf16 ulp) and timed
+   (median of 20): its conv and state launches alone and the pair,
+   beside the plain step and the bytes' bounds (the SSM state read and
+   written once; and everything K5 reads and writes);
 7. Mistral-NeMo-12B served at full width and depth (random bf16 weights
    from a seed): 4 prompts of 2048 tokens, then 32 greedy decode steps
    through ``greedy_generate``; every flash-attention launch of it must
@@ -100,7 +108,9 @@ card, in phases:
    4096 window), Kimi-K2 (1 dense + 1 MoE layer of 384 experts and a
    shared expert, 16 steps), Zamba2-7B (all 81 Mamba-2 blocks, 13
    shared-attention applications; each Mamba-2 prompt one launch of K3's
-   Mamba-2 kernel), Whisper-large-v3 (32 + 32 layers,
+   Mamba-2 kernel, each decode step one K5 call a Mamba-2 layer, and
+   ``mamba.state_step_kernel`` 81 a step, eager and under the decode
+   graph), Whisper-large-v3 (32 + 32 layers,
    1500 stub frames, a 64-token decoder prompt), InternVL2-76B (24 of 80
    layers, 256 stub vision embeddings + 1792 text tokens). Every prefill
    launches exactly the kernels its layers call, every bf16 attention
@@ -172,6 +182,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import math
 import os
 import pathlib
 import statistics
@@ -257,6 +268,9 @@ SFU_EXPS_PER_CLOCK_SM = 16
 #: the prefill cell's prompts at B 1, the decode cell's batch prefill
 MAMBA2_LAYER = (112, 64, 2, 64)
 MAMBA2_SHAPES = ((1, 2048), (1, 4096), (32, 512))
+#: K5's batches at that layer (conv width 4): the decode cell's, and one
+#: sequence
+MAMBA2_STEP_BATCHES = (32, 1)
 #: the decode cells' attention layers (B, Hq, Hkv, hd), over a bf16 cache
 #: of DECODE_SLOTS at DECODE_POS (mid-batch of decode-b32's 512 -> 2048)
 DECODE_ATTN = (("mistral-nemo-12b", (32, 32, 8, 128)),
@@ -276,7 +290,7 @@ FAMILY_PHASES = {
               check={"served": True, "prompt": 64})),
     13: ("zamba2-7b", {"fa": 13, "m2": 81},
          # 7 blocks keep one shared-attention application and a tail
-         dict(attentions=13, check={"n_layers": 7})),
+         dict(attentions=13, state_steps=81, check={"n_layers": 7})),
     # the decoder's 32 self-attentions (its cross-attentions have no mask)
     14: ("whisper-large-v3", {"fa": 96},
          dict(attentions=32, prompt=64, check={"n_encoder_layers": 2})),
@@ -1407,6 +1421,116 @@ def _mamba2_scan_times(m2, ops, ref, dev) -> list:
     return rows
 
 
+def _mamba2_step_times(m5, ops, dev) -> list:
+    """Phase 6's K5 (``ops.mamba2_state_step``) at Zamba2-7B's layer
+    (MAMBA2_LAYER, conv width 4) at each of MAMBA2_STEP_BATCHES, bf16 as
+    served: xBC and dt_raw strided views of one projection, a bf16 conv
+    state, an fp32 SSM state. One call checked against the plain step
+    (``m5.plain``) as ``tests/test_torch_mamba2_step.py`` holds it: the
+    conv state equal, y and the SSM state no further from the plain step
+    in fp32 than twice the bf16 plain step, plus one bf16 ulp; one call a
+    call. Then timed (median of 20, CUDA events): the conv launch and the
+    state launch alone (their C entry points) and the pair through
+    ``ops``, beside the plain step, the bound of the SSM state read and
+    written once, and K5's bytes bound (that state, the conv state read
+    and written, xBC, dt_raw, the conv weights and y, each once)."""
+    H, P, G, N = MAMBA2_LAYER
+    K = 4
+    Di = H * P
+    C = Di + 2 * G * N
+    lib = m5.build()
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = []
+    for B in MAMBA2_STEP_BATCHES:
+        gen = torch.Generator(device=dev).manual_seed(31)
+        proj = torch.randn((B, 1, Di + C + H), generator=gen, device=dev)
+        proj[..., Di + C:] -= 1.0
+        proj = proj.bfloat16()
+        xBC, dt_raw = proj[..., Di:Di + C], proj[..., Di + C:]
+        w = [(torch.randn((C, K), generator=gen, device=dev) / K).bfloat16(),
+             (torch.randn((C,), generator=gen, device=dev) / 4).bfloat16(),
+             torch.randn((H,), generator=gen, device=dev) - 2.0,
+             torch.log(torch.linspace(1.0, 16.0, H, device=dev)),
+             torch.linspace(0.5, 1.5, H, device=dev)]
+        conv = torch.randn((B, K - 1, C), generator=gen,
+                           device=dev).bfloat16()
+        h = torch.randn((B, H, P, N), generator=gen, device=dev)
+        kc, kh, pc, ph = conv.clone(), h.clone(), conv.clone(), h.clone()
+        fc, fh = conv.float(), h.clone()
+        n0 = m5.launches
+        y = ops.mamba2_state_step(xBC, dt_raw, *w, kc, kh)
+        yp = m5.plain(xBC, dt_raw, *w, pc, ph)
+        yf = m5.plain(xBC.float(), dt_raw.float(), *[t.float() for t in w],
+                      fc, fh)
+        torch.cuda.synchronize()
+        _check(m5.launches - n0 == 1, "one K5 call a call")
+        _check(y.dtype == torch.bfloat16, "K5: y not in bf16")
+        _check(torch.equal(kc, pc) and torch.equal(kc.float(), fc),
+               f"K5 B={B}: the conv state is not the plain step's")
+        errs = {}
+        for what, got, plain, want in (("y", y, yp, yf),
+                                       ("ssm", kh, ph, fh)):
+            err = float((got.float() - want).abs().max())
+            plain_err = float((plain.float() - want).abs().max())
+            ulp = 2.0 ** (math.floor(math.log2(float(want.abs().max())))
+                          - 7)
+            _check(err <= 2 * plain_err + ulp,
+                   f"K5 B={B} {what}: {err:.3e} from the fp32 plain step, "
+                   f"the bf16 plain step {plain_err:.3e} (ulp {ulp:.3e})")
+            errs[what] = (err, plain_err)
+        del y, yp, yf, pc, ph, fc, fh
+        act = torch.empty((B, C), dtype=torch.bfloat16, device=dev)
+        out = torch.empty((B, 1, Di), dtype=torch.bfloat16, device=dev)
+
+        def conv_launch():
+            _check(lib.mamba2_conv_step_fwd(
+                xBC.data_ptr(), xBC.stride(0), w[0].data_ptr(),
+                w[1].data_ptr(), kc.data_ptr(), act.data_ptr(), B, C, K, 1,
+                1, stream) == 0, "K5 conv launch")
+
+        def state_launch():
+            _check(lib.mamba2_state_step_fwd(
+                act.data_ptr(), dt_raw.data_ptr(), dt_raw.stride(0),
+                w[2].data_ptr(), w[3].data_ptr(), w[4].data_ptr(),
+                kh.data_ptr(), out.data_ptr(), B, H, P, G, N, 1, stream) == 0,
+                "K5 state launch")
+
+        conv_ms = _time_cuda_median(conv_launch)
+        state_ms = _time_cuda_median(state_launch)
+        ms_ = _time_cuda_median(lambda: ops.mamba2_state_step(
+            xBC, dt_raw, *w, kc, kh))
+        pc, ph = conv.clone(), h.clone()
+        plain = _time_cuda_median(lambda: m5.plain(xBC, dt_raw, *w, pc, ph))
+        state_bytes = 2 * B * H * P * N * 4
+        k5_bytes = (state_bytes + 2 * B * (K - 1) * C * 2 + B * C * 2
+                    + B * H * 2 + C * (K + 1) * 2 + 3 * H * 4 + B * Di * 2)
+        bound = state_bytes / HBM_BYTES_PER_S * 1e3
+        k5_bound = k5_bytes / HBM_BYTES_PER_S * 1e3
+        rows.append(dict(shape=[B, H, P, G, N, K], ms=ms_, conv_ms=conv_ms,
+                         state_ms=state_ms, plain_ms=plain,
+                         state_bound_ms=bound, bound_ms=k5_bound,
+                         bound_by="bytes",
+                         state_roofline_pct=100 * bound / state_ms,
+                         roofline_pct=100 * k5_bound / ms_,
+                         max_abs_err=errs["y"][0],
+                         plain_max_abs_err=errs["y"][1],
+                         ssm_max_abs_err=errs["ssm"][0],
+                         ssm_plain_max_abs_err=errs["ssm"][1]))
+        print(f"   mamba2_state_step (K5) B={B} H={H} P={P} G={G} N={N} "
+              f"K={K} bf16: conv launch {conv_ms:.6f}  state launch "
+              f"{state_ms:.6f}  both (ops) {ms_:.6f}  plain {plain:.6f}  "
+              f"state bound {bound:.6f} (SSM state read and written once;"
+              f" {100 * bound / state_ms:.2f} % of the state launch)  K5 "
+              f"bound {k5_bound:.6f} ({100 * k5_bound / ms_:.2f} %)  "
+              f"plain/K5 {plain / ms_:.1f}; from the fp32 plain step y "
+              f"{errs['y'][0]:.3e} (bf16 plain {errs['y'][1]:.3e}), SSM "
+              f"state {errs['ssm'][0]:.3e} ({errs['ssm'][1]:.3e})",
+              flush=True)
+        del proj, xBC, dt_raw, w, conv, h, kc, kh, pc, ph, act, out
+        _free()
+    return rows
+
+
 def _bf16_attention_check(cfg, fa, ops, ref, dev) -> float:
     """Phase 7's end: a 2-layer, full-width bf16 prefill of one serving-length
     prompt as the package runs it, then again with ``ops.flash_attention``
@@ -1461,18 +1585,21 @@ def _free():
 
 
 def _serve(arch: str, per_prefill: dict, counters, dev, phase: int, *,
-           attentions=0, layers=None, batch=SERVE_BATCH,
+           attentions=0, state_steps=0, layers=None, batch=SERVE_BATCH,
            prompt=SERVE_PROMPT, steps=SERVE_STEPS, check=None) -> dict:
     """Phases 7, 8 and 11-15: serve one model at full width (depth cut to
     ``layers`` where one card cannot hold it), then hold the port on the
     card to the port on the CPU (:func:`_cpu_check`, with ``check``'s
     config changes). ``per_prefill`` maps each kernel module of the path to
     its launches in one prefill, which greedy_generate's run must show
-    exactly; every bf16 attention launch must take the wgmma route; and
-    the decode-attention kernel (K4) must serve each of a decode step's
-    ``attentions`` cached self-attentions on every decode step. Returns
+    exactly; every bf16 attention launch must take the wgmma route; the
+    decode-attention kernel (K4) must serve each of a decode step's
+    ``attentions`` cached self-attentions on every decode step, and K5
+    each of its ``state_steps`` Mamba-2 mixers, which an eager step and a
+    graph replay must each count as ``mamba.state_step_kernel``. Returns
     the launch counts of greedy_generate's run, by kernel (and by
     route for attention)."""
+    from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.models import model
     from repro_torch.train import serve
@@ -1524,6 +1651,15 @@ def _serve(arch: str, per_prefill: dict, counters, dev, phase: int, *,
     decode_s = time.perf_counter() - t0
     _check(bool(torch.isfinite(logits).all()), f"{arch}: decode logits")
     del logits
+    obs.enable()   # K5's counter: an eager step, then a graph replay
+    model.decode_step(cfg, params, cache, tok, V + S + steps, device=dev)
+    eager = obs.drain().counts.get("mamba.state_step_kernel", 0)
+    _, cache = step(params, cache, tok, V + S + steps)
+    replay = obs.drain().counts.get("mamba.state_step_kernel", 0)
+    obs.disable()
+    _check(eager == replay == state_steps, f"{arch}: a decode step counted "
+           f"{eager} mamba.state_step_kernel eager and {replay} replayed, "
+           f"not {state_steps}")
     try:   # the card's own time for one step: captured once, replayed
         step_dev_ms = _time_graph(
             lambda: step(params, cache, tok, V + S + steps), 1)
@@ -1553,6 +1689,10 @@ def _serve(arch: str, per_prefill: dict, counters, dev, phase: int, *,
            f"{arch}: greedy_generate's {steps} decode steps launched the "
            f"decode-attention kernel {launches['decode_attention']} times, "
            f"not once for each of {attentions} attentions a step")
+    _check(launches["mamba2_step"] == state_steps * steps,
+           f"{arch}: greedy_generate's {steps} decode steps called K5 "
+           f"{launches['mamba2_step']} times, not once for each of "
+           f"{state_steps} Mamba-2 mixers a step")
     _check(tuple(out.shape) == (B, steps + 1) and out.dtype == torch.int32
            and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
            f"{arch}: generated tokens")
@@ -2372,11 +2512,12 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa, mamba_scan as ms
     from repro_torch.kernels import mamba2_scan as m2, ops, ref
+    from repro_torch.kernels import mamba2_step as m5
 
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    counters = (gp, fa, ms, da, m2)
+    counters = (gp, fa, ms, da, m2, m5)
     card = _card_line()
     print(f"== phase 0: card {card}; torch {torch.__version__} "
           f"(CUDA {torch.version.cuda}); "
@@ -2604,6 +2745,7 @@ def main() -> int:
     decode_times = _decode_attention_times(da, ops, ref, dev)
     mamba2_times = _mamba2_scan_times(m2, ops, ref, dev)
     mamba1_times = _mamba1_scan_times(ms, ops, p5, dev)
+    step_times = _mamba2_step_times(m5, ops, dev)
     attn_err, scan_err = p5["attn_err"], p5["scan_err"]
     del p5
     from repro_torch.configs import get_config
@@ -2723,6 +2865,14 @@ def main() -> int:
         # phase 17: the Mamba-2 block on the (1, 1) mesh
         "launches_phase17_mesh": p17_scans,
         "cell_shapes": mamba2_times})
+    rows.append({
+        "name": "mamba2_state_step", "route": "cuda",
+        "source": "src/repro_torch/csrc/mamba2_step.cu",
+        "replaces": None,   # the reference's decode recurrence is plain
+        "launches": served[13]["mamba2_step"],
+        "launches_by_phase": {str(ph): got["mamba2_step"]
+                              for ph, got in served.items()},
+        "cell_shapes": step_times})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,12 @@ the kernels: nothing is padded here.
   launch; y in the activation dtype, ``h_last`` in fp32. Its
   plain version runs :func:`mamba_scan` once a group
   (:func:`repro_torch.kernels.ref.mamba2_scan_ref`).
+* :func:`mamba2_state_step` takes one decode token of a Mamba-2 mixer:
+  its projection's xBC and dt columns (strided views), the conv weights,
+  dt's bias, A and D, and the layer's conv and fp32 SSM state, which it
+  updates in place; y in the activation dtype. Its plain version is the
+  mixer's former decode step through the model's plain functions
+  (:func:`repro_torch.kernels.mamba2_step.plain`).
 * :func:`decode_attention` takes one new token's q in the model layout
   and a layer's KV cache as ``attention_decode`` holds it, in bf16 alone
   (the served dtype; an fp32 decode takes the model's plain path), and
@@ -41,12 +47,14 @@ from . import decode_attention as _da
 from . import flash_attention as _fa
 from . import gbdt_predict as _gp
 from . import mamba2_scan as _m2
+from . import mamba2_step as _m5
 from . import mamba_scan as _ms
 from .ref import (flash_attention_ref, gbdt_predict_ref, mamba2_scan_ref,
                   mamba_scan_ref)
 
 __all__ = ["decode_attention", "flash_attention", "gbdt_predict",
-           "gbdt_predict_model", "mamba2_scan", "mamba_scan"]
+           "gbdt_predict_model", "mamba2_scan", "mamba2_state_step",
+           "mamba_scan"]
 
 
 def _check(name: str, t, dtype: torch.dtype, ndim: int,
@@ -268,6 +276,91 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     h_last = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
     _m2.launch(x, dt, A, Bm, Cm, D, y, h_last)
     return y, h_last
+
+
+def mamba2_state_step(xBC: torch.Tensor, dt_raw: torch.Tensor,
+                      conv_w: torch.Tensor, conv_b: torch.Tensor,
+                      dt_bias: torch.Tensor, A_log: torch.Tensor,
+                      D: torch.Tensor, conv_state: torch.Tensor,
+                      ssm_state: torch.Tensor) -> torch.Tensor:
+    """One decode token of a Mamba-2 mixer, every sequence, head and B/C
+    group at once, the layer's conv and SSM state updated in place.
+
+    xBC: (B, 1, H P + 2 G N), the conv's input channels (x of every head,
+    then B and C of every group), and dt_raw: (B, 1, H), each in the
+    activation dtype (float32 or bfloat16) with its last dim contiguous
+    (strided views of one projection are taken as they are); conv_w
+    (C, K) and conv_b (C,) in that dtype, contiguous, ``K <=``
+    :data:`~repro_torch.kernels.mamba2_step.MAX_CONV`; dt_bias, A_log, D
+    (H,) float32; conv_state (B, K - 1, C) float32 or bfloat16 and
+    ssm_state (B, H, P, N) float32, contiguous, each written in place;
+    all on one device; G, from the widths, divides H; ``N <= 64``. Head j
+    reads group ``j // (H / G)``. dt is ``softplus(dt_raw + dt_bias)``
+    rounded to the activation dtype, the decay ``exp(dt -exp(A_log))``.
+    Returns y (B, 1, H P) in the activation dtype: each ``h·C`` rounded to
+    it, then ``+ D x`` in fp32, rounded. On the card the conv window sums
+    its taps in fp32 and rounds once; the plain version
+    (:func:`repro_torch.kernels.mamba2_step.plain`, on the CPU) rounds as
+    the former step did."""
+    dev = _device_of("xBC", xBC)
+    dtype = xBC.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"xBC must be torch.float32 or torch.bfloat16, got "
+                        f"{dtype}")
+    if conv_state.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"conv_state must be torch.float32 or "
+                        f"torch.bfloat16, got {conv_state.dtype}")
+    f32 = torch.float32
+    _check("xBC", xBC, dtype, 3, dev, anchor="xBC", contiguous=False)
+    _check("dt_raw", dt_raw, dtype, 3, dev, anchor="xBC", contiguous=False)
+    _check("conv_w", conv_w, dtype, 2, dev, anchor="xBC")
+    _check("conv_b", conv_b, dtype, 1, dev, anchor="xBC")
+    for name, t in (("dt_bias", dt_bias), ("A_log", A_log), ("D", D)):
+        _check(name, t, f32, 1, dev, anchor="xBC")
+    _check("conv_state", conv_state, conv_state.dtype, 3, dev, anchor="xBC")
+    _check("ssm_state", ssm_state, f32, 4, dev, anchor="xBC")
+    _forward_only(xBC=xBC, dt_raw=dt_raw, conv_w=conv_w, conv_b=conv_b,
+                  dt_bias=dt_bias, A_log=A_log, D=D, conv_state=conv_state,
+                  ssm_state=ssm_state)
+    B, one, C = xBC.shape
+    H, P, N = ssm_state.shape[1:]
+    K = conv_w.shape[1]
+    if one != 1:
+        raise ValueError(f"xBC must hold one token, (B, 1, C), got shape "
+                         f"{tuple(xBC.shape)}")
+    _positive(B=B, H=H, P=P, N=N, K=K)
+    G = (C - H * P) // (2 * N)
+    if G < 1 or C != H * P + 2 * G * N:
+        raise ValueError(f"xBC's {C} channels are not the {H * P} of x and "
+                         f"B and C of one or more groups of {N} states")
+    for name, t, want in (("dt_raw", dt_raw, (B, 1, H)),
+                          ("conv_w", conv_w, (C, K)), ("conv_b", conv_b, (C,)),
+                          ("dt_bias", dt_bias, (H,)), ("A_log", A_log, (H,)),
+                          ("D", D, (H,)),
+                          ("conv_state", conv_state, (B, K - 1, C)),
+                          ("ssm_state", ssm_state, (B, H, P, N))):
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {want}")
+    if H % G:
+        raise ValueError(f"{H} heads do not split into {G} groups of B "
+                         "and C")
+    if N > _m5.MAX_STATE:
+        raise ValueError(f"state size {N} exceeds the kernel's maximum of "
+                         f"{_m5.MAX_STATE}")
+    if K > _m5.MAX_CONV:
+        raise ValueError(f"conv width {K} exceeds the kernel's maximum of "
+                         f"{_m5.MAX_CONV}")
+    for name, t in (("xBC", xBC), ("dt_raw", dt_raw)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}'s last dim must be contiguous")
+    if dev.type == "cpu":
+        return _m5.plain(xBC, dt_raw, conv_w, conv_b, dt_bias, A_log, D,
+                         conv_state, ssm_state)
+    act = torch.empty((B, C), dtype=dtype, device=dev)
+    y = torch.empty((B, 1, H * P), dtype=dtype, device=dev)
+    _m5.launch(xBC, dt_raw, conv_w, conv_b, dt_bias, A_log, D, conv_state,
+               ssm_state, act, y)
+    return y
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

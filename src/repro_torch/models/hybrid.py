@@ -29,15 +29,19 @@ their defaults these fields give the reference's bits; the mesh path
 takes none of them (it raises, naming them).
 
 A prompt runs the scan kernel in every Mamba-2 block and the attention
-kernel in every application; decode is the plain single step of each.
+kernel in every application; a decode step runs the state-step kernel
+(K5) in every Mamba-2 block and the decode-attention kernel in every
+application, on the card.
 ``forward`` takes the route by its ``impl`` argument (``"xla"`` to train)
 and, with ``cfg.remat == "full"``, rematerialises each Mamba-2 block, as
 the reference does (its shared block is not rematerialised).
 
 Spans (:mod:`repro_torch.obs`): ``shared`` around each application of
 the ``"zamba2"`` form (from the concat to ``linear_a``), ``mamba`` and
-``mamba.scan`` in each mixer; counter ``mamba.state_bytes``: the conv and
-SSM state a decode step reads and writes, counted on the host.
+``mamba.scan`` in each mixer; counters ``mamba.state_bytes``: the conv
+and SSM state a decode step reads and writes, and
+``mamba.state_step_kernel``: one a layer's decode step through K5, both
+counted on the host.
 """
 from __future__ import annotations
 
@@ -51,7 +55,7 @@ from .common import (FSDP, TP, Embeddings, P, assign, current_mesh,
                      matmul, mesh_zeros, param, podify, rms_norm,
                      spec_embeddings, unembed)
 from .mlp import MLP, mlp, spec_mlp
-from .ssm import Mamba2, mamba2_block, spec_mamba
+from .ssm import Mamba2, mamba2_block, spec_mamba, uses_state_step_kernel
 from .transformer import cache_write
 
 
@@ -385,16 +389,25 @@ GRAPH_RECAPTURES = True
 def count_decode_step(cfg, cache, pos: int) -> None:
     """What one decode step at ``pos`` counts: the applications'
     attention positions (:func:`attention.count_positions`, on the
-    route the step takes) and the conv and SSM state it reads and writes
-    (``mamba.state_bytes``)."""
+    route the step takes) and the mixers' state (:func:`_count_states`)."""
     if "attn_k" in cache:
         n, B, _, S_max, _ = cache["attn_k"].shape
         attn_mod.count_positions(
             B, S_max, pos, cfg.sliding_window, n,
             kernel=attn_mod.uses_decode_kernel(
                 cache["attn_k"], dtype_of(cfg.activation_dtype)))
+    _count_states(cache)
+
+
+def _count_states(cache) -> None:
+    """The conv and SSM state a decode step reads and writes
+    (``mamba.state_bytes``) and, where its mixers go through K5
+    (:func:`~repro_torch.models.ssm.uses_state_step_kernel`), one
+    ``mamba.state_step_kernel`` a layer."""
     obs.count("mamba.state_bytes",
               2 * (cache["conv"].nbytes + cache["ssm"].nbytes))
+    if uses_state_step_kernel(cache["ssm"]):
+        obs.count("mamba.state_step_kernel", cache["ssm"].shape[0])
 
 
 def decode_step(params: HybridLM, cache, tokens, pos, cfg):
@@ -404,8 +417,7 @@ def decode_step(params: HybridLM, cache, tokens, pos, cfg):
     cache); the cache tensors are updated in place."""
     _no_mesh(cfg)
     if obs.on and not isinstance(pos, torch.Tensor):
-        obs.count("mamba.state_bytes",
-                  2 * (cache["conv"].nbytes + cache["ssm"].nbytes))
+        _count_states(cache)
     if cfg.shared_block == "zamba2":
         return _decode_zamba2(params, cache, tokens, pos, cfg)
     x = embed_tokens(params.embed, tokens, cfg)
@@ -427,12 +439,13 @@ def decode_step(params: HybridLM, cache, tokens, pos, cfg):
 
 def _state_step(lp, x, cache, i: int, cfg):
     """Layer ``i``'s mixer over one token (its normed input ``x``) from
-    the cached conv and SSM state, written back in place."""
-    h, st = mamba2_block(lp.mamba, x, cfg,
-                         state={"conv": cache["conv"][i].to(x.dtype),
-                                "ssm": cache["ssm"][i]})
-    assign(cache["conv"], (i,), st["conv"])
-    assign(cache["ssm"], (i,), st["ssm"])
+    the cached conv and SSM state, written back in place: by the block
+    itself off a mesh (it returns the cache's own tensors), else here."""
+    state = {n: cache[n][i] for n in RECURRENT_CACHE}
+    h, st = mamba2_block(lp.mamba, x, cfg, state=state)
+    for n in RECURRENT_CACHE:
+        if st[n] is not state[n]:
+            assign(cache[n], (i,), st[n])
     return h
 
 

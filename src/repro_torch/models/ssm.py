@@ -17,7 +17,11 @@ dtype as the in-projection left them. The kernels are forward-only.
 ``"xla"`` (training's route) runs the plain recurrences
 :func:`mamba1_scan` and :func:`mamba2_scan`, differentiable, over
 rematerialised 256-step chunks as the reference's ``_chunked_scan``.
-Decode steps run the plain recurrences too; they stream their inputs in
+A Mamba-2 decode step (a state and one token) off a mesh runs
+:func:`repro_torch.kernels.ops.mamba2_state_step`, which updates the
+conv and SSM state in place: on the card K5, on the CPU its plain
+version, the former step's arithmetic. Mamba-1 decode steps, and Mamba-2
+ones under a mesh, run the plain recurrences; they stream their inputs in
 the activation dtype, as the reference's do.
 """
 from __future__ import annotations
@@ -304,13 +308,13 @@ class Mamba2(nn.Module):
 
 
 def mamba2_scan(u, dt, A, Bm, Cm, D, h0=None):
-    """Sequential Mamba-2 scan (the training and decode route, and the
-    reference's recurrence). u: (B, L, H, Pd); dt: (B, L, H); A, D: (H,);
-    Bm/Cm: (B, L, N), or (B, L, G, N) for G groups (head j reads group
-    ``j // (H / G)``); h0: (B, H, Pd, N) or None. The inputs stream in
-    u's dtype and are upcast per step; each step's ``h·C`` is rounded to
-    u's dtype. Returns (y (B, L, H, Pd) fp32, h_last (B, H, Pd, N)
-    fp32)."""
+    """Sequential Mamba-2 scan (the training route, a decode step's
+    under a mesh, and the reference's recurrence). u: (B, L, H, Pd); dt:
+    (B, L, H); A, D: (H,); Bm/Cm: (B, L, N), or (B, L, G, N) for G
+    groups (head j reads group ``j // (H / G)``); h0: (B, H, Pd, N) or
+    None. The inputs stream in u's dtype and are upcast per step; each
+    step's ``h·C`` is rounded to u's dtype. Returns (y (B, L, H, Pd)
+    fp32, h_last (B, H, Pd, N) fp32)."""
     Bsz, L, H, Pd = u.shape
     N = Bm.shape[-1]
     if _stand_in(u, h0):
@@ -345,11 +349,26 @@ def mamba2_scan(u, dt, A, Bm, Cm, D, h0=None):
     return y, h
 
 
+def uses_state_step_kernel(state) -> bool:
+    """Whether a Mamba-2 decode step over ``state`` (a layer's SSM state,
+    or a stack of them) launches K5 (:func:`mamba2_block`'s decode route
+    on the card): a plain CUDA tensor (not a DTensor) and no mesh."""
+    return (type(state) is torch.Tensor and state.is_cuda
+            and current_mesh() is None)
+
+
 def mamba2_block(p: Mamba2, x, cfg, state=None, impl: str = "flash"):
-    """x: (B, L, D). state: None, or dict(conv, ssm) for decode; a prompt
-    takes the route ``impl`` names. Returns (out, new_state), as one
-    ``mamba`` span (:mod:`repro_torch.obs`) holding a ``mamba.scan``
-    span around the scan.
+    """x: (B, L, D). state: None, or dict(conv, ssm) for decode (conv in
+    the cache's dtype); a prompt takes the route ``impl`` names. Returns
+    (out, new_state), as one ``mamba`` span (:mod:`repro_torch.obs`)
+    holding a ``mamba.scan`` span around the scan.
+
+    A decode step (a state and L == 1) off a mesh goes through
+    :func:`repro_torch.kernels.ops.mamba2_state_step` (conv window, SiLU,
+    dt and the recurrence in one call, K5 on the card), which writes the
+    new conv and SSM state into ``state``'s tensors: ``new_state`` is
+    ``state`` itself. Under a mesh a decode step runs the plain
+    recurrence and returns new tensors.
 
     On the ``"flash"`` route a prompt goes through the Mamba-2 scan
     kernel (:func:`repro_torch.kernels.ops.mamba2_scan`), one launch for
@@ -376,7 +395,16 @@ def mamba2_block(p: Mamba2, x, cfg, state=None, impl: str = "flash"):
         H = Di // cfg.ssm_head_dim
         proj = matmul(x, p.in_proj.to(x.dtype))
         z, xBC, dt_raw = split_last(proj, (Di, Di + 2 * N, H))
-        conv_state = state["conv"] if state is not None else None
+        mesh = current_mesh()
+        if state is not None and x.shape[1] == 1 and mesh is None:
+            with obs.span("mamba.scan"):
+                y = kops.mamba2_state_step(
+                    xBC, dt_raw, p.conv_w.to(x.dtype), p.conv_b.to(x.dtype),
+                    p.dt_bias, p.A_log, p.D, state["conv"], state["ssm"])
+            y = _gated_norm(y, z, p.norm_w, G, cfg.norm_eps, rms_norm)
+            return residual(matmul(y, p.out_proj.to(x.dtype))), state
+        conv_state = (state["conv"].to(x.dtype) if state is not None
+                      else None)
         xBC, new_conv = causal_conv1d(xBC, p.conv_w, p.conv_b, conv_state)
         xBC = F.silu(xBC)
         xs, Bm, Cm = split_last(xBC, (Di, N, N))
@@ -384,7 +412,6 @@ def mamba2_block(p: Mamba2, x, cfg, state=None, impl: str = "flash"):
             Bm = Bm.unflatten(-1, (G, cfg.ssm_state))
             Cm = Cm.unflatten(-1, (G, cfg.ssm_state))
         h0 = state["ssm"] if state is not None else None
-        mesh = current_mesh()
         if mesh is not None and G > 1:
             raise ValueError(f"mamba_ngroups={G}: no mesh takes grouped "
                              "B and C")
@@ -425,12 +452,20 @@ def _mamba2_core(xs, Bm, Cm, dt_raw, z, dt_bias, A_log, D, norm_w, h0, cfg,
         else:
             y, h_last = mamba2_scan(xs.reshape(B, L, H, Pd), dt, A, Bm, Cm,
                                     D, h0)
-    y = y.reshape(B, L, Di).to(dtype) * F.silu(z)
-    if Bm.dim() == 4:
-        G = Bm.shape[2]
-        return norm(y.unflatten(-1, (G, Di // G)),
-                    norm_w.view(G, Di // G), cfg.norm_eps).flatten(-2), h_last
-    return norm(y, norm_w, cfg.norm_eps), h_last
+    G = Bm.shape[2] if Bm.dim() == 4 else 1
+    return _gated_norm(y.reshape(B, L, Di).to(dtype), z, norm_w, G,
+                       cfg.norm_eps, norm), h_last
+
+
+def _gated_norm(y, z, norm_w, G: int, eps, norm):
+    """The mixer's gate and gated norm: ``y · silu(z)`` normed by
+    ``norm``, each group's Di / G channels apart where G > 1."""
+    y = y * F.silu(z)
+    if G == 1:
+        return norm(y, norm_w, eps)
+    Di = y.shape[-1]
+    return norm(y.unflatten(-1, (G, Di // G)), norm_w.view(G, Di // G),
+                eps).flatten(-2)
 
 
 def _mamba2_sharded(p: Mamba2, xs, Bm, Cm, dt_raw, z, h0, cfg, impl,

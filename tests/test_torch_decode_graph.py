@@ -26,6 +26,7 @@ import torch
 from repro_torch import obs
 from repro_torch.configs import get_config
 from repro_torch.configs.base import reduce_for_smoke, with_port_fields
+from repro_torch.kernels import mamba2_step as m5
 from repro_torch.models import attention as attn, model, transformer
 from repro_torch.train import serve
 
@@ -278,7 +279,9 @@ def test_hybrid_graph_step_equals_the_eager_step_on_the_card(form, dtype):
     dropped (captured anew, the graph holding its cache weakly). Equal
     tokens and logits bit for bit, so the warm-up steps before each
     capture left the conv and SSM state as they found it; 2 captures, 1
-    copy, 27 replays; the counters as the eager steps count them."""
+    copy, 27 replays; the counters as the eager steps count them, K5
+    (``mamba.state_step_kernel``) once a layer and step, and the eager
+    steps' K5 calls as many."""
     dev = _card()
     cfg = _hybrid(form, dtype)
     assert model.decode_graphable(cfg)
@@ -311,8 +314,10 @@ def test_hybrid_graph_step_equals_the_eager_step_on_the_card(form, dtype):
         return out, counts, caches[-1]
 
     got, got_counts, got_cache = run(lambda c, t, p: step(params, c, t, p))
+    before = m5.launches
     want, want_counts, want_cache = run(
         lambda c, t, p: model.decode_step(cfg, params, c, t, p, device=dev))
+    assert m5.launches - before == 3 * n * cfg.n_layers
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert all(torch.equal(got_cache[k], want_cache[k]) for k in got_cache)
@@ -324,5 +329,6 @@ def test_hybrid_graph_step_equals_the_eager_step_on_the_card(form, dtype):
                      "serve.graph_replays": 27}
     for a, b in zip(got_counts, want_counts):
         for k in ("attention.positions_attended", "attention.positions_live",
-                  "mamba.state_bytes"):
+                  "mamba.state_bytes", "mamba.state_step_kernel"):
             assert a[k] == b[k]
+        assert a["mamba.state_step_kernel"] == n * cfg.n_layers

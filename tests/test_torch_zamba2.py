@@ -74,20 +74,54 @@ def test_the_defaults_set_no_field():
         "mixer_rms_eps", "residual_in_fp32"}
 
 
+def _mixer_step_before(p, x, cfg, conv, h0):
+    """The Mamba-2 block's decode step as it ran before the state-step
+    kernel: ``causal_conv1d`` over the token, SiLU, the split, the softplus
+    of dt, ``mamba2_scan`` over one step, the gate and the gated norm.
+    Returns (out, new conv state, new SSM state)."""
+    Di, G = cfg.d_inner, cfg.mamba_ngroups
+    N = G * cfg.ssm_state
+    H = Di // cfg.ssm_head_dim
+    proj = common.matmul(x, p.in_proj.to(x.dtype))
+    z, xBC, dt_raw = common.split_last(proj, (Di, Di + 2 * N, H))
+    xBC, new_conv = ssm.causal_conv1d(xBC, p.conv_w, p.conv_b, conv)
+    xs, Bm, Cm = common.split_last(F.silu(xBC), (Di, N, N))
+    if G > 1:
+        Bm = Bm.unflatten(-1, (G, cfg.ssm_state))
+        Cm = Cm.unflatten(-1, (G, cfg.ssm_state))
+    dt = F.softplus(dt_raw.float() + p.dt_bias[None, None])
+    y, h = ssm.mamba2_scan(xs.reshape(*xs.shape[:2], H, cfg.ssm_head_dim),
+                           dt, -torch.exp(p.A_log), Bm, Cm, p.D, h0)
+    y = y.reshape(*xs.shape).to(x.dtype) * F.silu(z)
+    if G > 1:
+        y = common.rms_norm(y.unflatten(-1, (G, Di // G)),
+                            p.norm_w.view(G, Di // G),
+                            cfg.norm_eps).flatten(-2)
+    else:
+        y = common.rms_norm(y, p.norm_w, cfg.norm_eps)
+    return common.matmul(y, p.out_proj.to(x.dtype)), new_conv, h
+
+
+def _state_step_before(lp, x, cache, i, cfg):
+    """``hybrid._state_step`` as it ran before the state-step kernel."""
+    h, conv, st = _mixer_step_before(lp.mamba, x, cfg,
+                                     cache["conv"][i].to(x.dtype),
+                                     cache["ssm"][i])
+    common.assign(cache["conv"], (i,), conv)
+    common.assign(cache["ssm"], (i,), st)
+    return h
+
+
 def _decode_as_before(params, cache, tokens, pos, cfg):
-    """The residual form's decode step as it ran before the Zamba2 form:
-    each block's state step inline, then the shared block."""
+    """The residual form's decode step as it ran before the Zamba2 form
+    and the state-step kernel: each block's state step inline, then the
+    shared block."""
     x = common.embed_tokens(params.embed, tokens, cfg)
     for a, (lo, hi) in enumerate(hybrid._segments(cfg)):
         for i in range(lo, hi):
             lp = params.layers[i]
-            h, st = ssm.mamba2_block(
-                lp.mamba, common.rms_norm(x, lp.norm, cfg.norm_eps), cfg,
-                state={"conv": cache["conv"][i].to(x.dtype),
-                       "ssm": cache["ssm"][i]})
-            x = x + h
-            common.assign(cache["conv"], (i,), st["conv"])
-            common.assign(cache["ssm"], (i,), st["ssm"])
+            x = x + _state_step_before(
+                lp, common.rms_norm(x, lp.norm, cfg.norm_eps), cache, i, cfg)
         if a < hybrid.n_attn_applications(cfg):
             sp = params.shared_attn
             h, _, _ = attn_mod.attention_decode(
@@ -115,6 +149,197 @@ def test_default_hybrid_decode_is_the_step_before_it(dtype):
         assert torch.equal(got, want)
         for n in cache:
             assert torch.equal(cache[n], twin[n])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zamba2_form_decode_is_the_step_before_the_state_step_kernel(
+        dtype, monkeypatch):
+    """Zamba2's form (two B/C groups, the applications between the
+    mixers): ``model.decode_step`` through the state-step op against the
+    same steps with each mixer's former arithmetic, logits and every cache
+    tensor bit for bit."""
+    cfg = dataclasses.replace(ZAMBA, param_dtype=dtype,
+                              activation_dtype=dtype)
+    params = _params(cfg)
+    _, cache = model.prefill(cfg, params, _tokens(cfg, (B, S)), MAX_SEQ,
+                             device="cpu")
+    twin = {k: v.clone() for k, v in cache.items()}
+    for k in range(STEPS):
+        tok = _tokens(cfg, (B, 1), seed=10 + k)
+        got, cache = model.decode_step(cfg, params, cache, tok, S + k,
+                                       device="cpu")
+        with monkeypatch.context() as m:
+            m.setattr(hybrid, "_state_step", _state_step_before)
+            want, twin = model.decode_step(cfg, params, twin, tok, S + k,
+                                           device="cpu")
+        assert torch.equal(got, want)
+        for n in cache:
+            assert torch.equal(cache[n], twin[n])
+
+
+def _step_views(seed, Bsz, H, Pd, G, N, K, dtype, cache_dtype):
+    """One decode token's xBC and dt_raw as the block's strided views of
+    its projection (B, 1, 2 Di + 2 G N + H), the conv weights, dt's
+    bias, A_log and D, a conv state in ``cache_dtype`` and an fp32 SSM
+    state."""
+    g = torch.Generator().manual_seed(seed)
+    Di = H * Pd
+    C = Di + 2 * G * N
+    proj = torch.randn(Bsz, 1, Di + C + H, generator=g).to(dtype)
+    _, xBC, dt_raw = common.split_last(proj, (Di, C, H))
+    conv_w = (torch.randn(C, K, generator=g) / K).to(dtype)
+    conv_b = (torch.randn(C, generator=g) / 4).to(dtype)
+    dt_bias = torch.randn(H, generator=g) - 2.0
+    A_log = torch.log(torch.linspace(1.0, 16.0, H))
+    D = torch.linspace(0.5, 1.5, H)
+    conv = torch.randn(Bsz, K - 1, C, generator=g).to(dtype).to(cache_dtype)
+    h = torch.randn(Bsz, H, Pd, N, generator=g)
+    return [xBC, dt_raw, conv_w, conv_b, dt_bias, A_log, D, conv, h]
+
+
+def _step_before(xBC, dt_raw, conv_w, conv_b, dt_bias, A_log, D, conv, h,
+                 G):
+    """The step as the block ran it before the state-step op:
+    ``causal_conv1d``, SiLU, the split, the softplus of dt and
+    ``mamba2_scan`` over one step. Returns (y (B, 1, H P) in xBC's
+    dtype, the new conv state in ``conv``'s dtype, the new SSM state)."""
+    dtype = xBC.dtype
+    Bsz, _, C = xBC.shape
+    H, Pd, N = h.shape[1:]
+    Di = H * Pd
+    xBC, new_conv = ssm.causal_conv1d(xBC, conv_w, conv_b, conv.to(dtype))
+    xs, Bm, Cm = common.split_last(F.silu(xBC), (Di, G * N, G * N))
+    if G > 1:
+        Bm, Cm = Bm.unflatten(-1, (G, N)), Cm.unflatten(-1, (G, N))
+    dt = F.softplus(dt_raw.float() + dt_bias[None, None])
+    y, h = ssm.mamba2_scan(xs.reshape(Bsz, 1, H, Pd), dt, -torch.exp(A_log),
+                           Bm, Cm, D, h)
+    return y.reshape(Bsz, 1, Di).to(dtype), new_conv.to(conv.dtype), h
+
+
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("dtype,cache_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)])
+def test_state_step_plain_route_is_the_step_before_it(G, dtype, cache_dtype):
+    """``ops.mamba2_state_step`` on the CPU: three steps of the block's
+    former ``causal_conv1d`` + ``mamba2_scan`` route bit for bit, in y
+    and in both states, which it updates in place."""
+    H, Pd, N, K = 4, 8, 16, 4
+    args = _step_views(9, 2, H, Pd, G, N, K, dtype, cache_dtype)
+    assert not args[0].is_contiguous() and not args[1].is_contiguous()
+    conv, h = args[7].clone(), args[8].clone()
+    ids = (args[7].data_ptr(), args[8].data_ptr())
+    for t in range(3):
+        if t:
+            step = _step_views(20 + t, 2, H, Pd, G, N, K, dtype, cache_dtype)
+            args[:2] = step[:2]
+        y = kops.mamba2_state_step(*args)
+        want, conv, h = _step_before(*args[:7], conv, h, G)
+        assert y.dtype == dtype and y.shape == (2, 1, H * Pd)
+        assert torch.equal(y, want)
+        assert torch.equal(args[7], conv) and torch.equal(args[8], h)
+    assert (args[7].data_ptr(), args[8].data_ptr()) == ids
+
+
+def _step_refused(change):
+    kw = dict(zip(("xBC", "dt_raw", "conv_w", "conv_b", "dt_bias", "A_log",
+                   "D", "conv_state", "ssm_state"),
+                  _step_views(8, 2, 4, 8, 2, 16, 4, torch.float32,
+                              torch.bfloat16)))
+    return change(kw) or kw
+
+
+@pytest.mark.parametrize("change,err,match", [
+    (lambda k: k.update(xBC=k["xBC"].half()), TypeError, "xBC must be"),
+    (lambda k: k.update(dt_raw=k["dt_raw"].bfloat16()), TypeError,
+     "dt_raw must be"),
+    (lambda k: k.update(conv_w=k["conv_w"].bfloat16()), TypeError,
+     "conv_w must be"),
+    (lambda k: k.update(D=k["D"].double()), TypeError, "D must be"),
+    (lambda k: k.update(conv_state=k["conv_state"].half()), TypeError,
+     "conv_state must be"),
+    (lambda k: k.update(ssm_state=k["ssm_state"].bfloat16()), TypeError,
+     "ssm_state must be"),
+    (lambda k: k.update(xBC=torch.cat([k["xBC"]] * 2, dim=1)), ValueError,
+     "one token"),
+    (lambda k: k.update(dt_raw=k["dt_raw"][..., :3]), ValueError,
+     "dt_raw shape"),
+    (lambda k: k.update(conv_state=k["conv_state"][:, :2].contiguous()),
+     ValueError, "conv_state shape"),
+    (lambda k: k.update(A_log=k["A_log"][:3].contiguous()), ValueError,
+     "A_log shape"),
+    (lambda k: k.update(xBC=k["xBC"][..., :-1]), ValueError,
+     "not the 32 of x"),
+    (lambda k: k.update(xBC=k["xBC"].repeat_interleave(2, dim=-1)[..., ::2]),
+     ValueError, "xBC's last dim must be contiguous"),
+    (lambda k: k.update(ssm_state=k["ssm_state"].transpose(2, 3)
+                        .contiguous().transpose(2, 3)), ValueError,
+     "ssm_state must be contiguous"),
+    (lambda k: k.update(D=torch.ones(4, device="meta")), ValueError,
+     "D is on meta"),
+    (lambda k: k.update(
+        xBC=torch.zeros(2, 1, 32 + 6 * 16), ssm_state=torch.zeros(2, 4, 8, 16),
+        conv_w=torch.zeros(128, 4), conv_b=torch.zeros(128),
+        conv_state=torch.zeros(2, 3, 128)), ValueError,
+     "4 heads do not split into 3 groups"),
+    (lambda k: k.update(
+        xBC=torch.zeros(2, 1, 32 + 4 * 65), ssm_state=torch.zeros(2, 4, 8, 65),
+        conv_w=torch.zeros(292, 4), conv_b=torch.zeros(292),
+        conv_state=torch.zeros(2, 3, 292)), ValueError, "state size 65"),
+    (lambda k: k.update(conv_w=torch.zeros(96, 9),
+                        conv_state=torch.zeros(2, 8, 96)), ValueError,
+     "conv width 9"),
+    (lambda k: k.update(D=k["D"].requires_grad_()), ValueError,
+     "forward-only"),
+])
+def test_state_step_wrapper_refusals(change, err, match):
+    with pytest.raises(err, match=match):
+        kops.mamba2_state_step(**_step_refused(change))
+
+
+def test_the_state_step_route_calls_the_op_once_a_layer_step(monkeypatch):
+    """Every decode step's mixer goes through ``ops.mamba2_state_step``
+    (with the cache's own conv and SSM views, written in place), a
+    prefill's none."""
+    calls = []
+    op = kops.mamba2_state_step
+    monkeypatch.setattr(kops, "mamba2_state_step",
+                        lambda *a: calls.append(a[7:]) or op(*a))
+    params = _params(ZAMBA)
+    _, cache = model.prefill(ZAMBA, params, _tokens(ZAMBA, (B, S)), MAX_SEQ,
+                             device="cpu")
+    assert calls == []
+    model.decode_step(ZAMBA, params, cache, _tokens(ZAMBA, (B, 1)), S,
+                      device="cpu")
+    assert len(calls) == ZAMBA.n_layers
+    for i, (conv, h) in enumerate(calls):
+        assert conv.data_ptr() == cache["conv"][i].data_ptr()
+        assert h.data_ptr() == cache["ssm"][i].data_ptr()
+
+
+def test_the_state_step_kernel_counter_counts_the_card_alone(recording,
+                                                             monkeypatch):
+    """``mamba.state_step_kernel``: none on the CPU, eager or as a replay
+    counts it; with the cache on the card, one a layer, the same for the
+    eager step and for ``count_decode_step``."""
+    params = _params(ZAMBA)
+    _, cache = model.prefill(ZAMBA, params, _tokens(ZAMBA, (B, S)), MAX_SEQ,
+                             device="cpu")
+    tok = _tokens(ZAMBA, (B, 1))
+    assert not ssm.uses_state_step_kernel(cache["ssm"])
+    assert not ssm.uses_state_step_kernel(cache["ssm"][0])
+    obs.enable()
+    model.decode_step(ZAMBA, params, cache, tok, S, device="cpu")
+    model.count_decode_step(ZAMBA, cache, S + 1)
+    assert "mamba.state_step_kernel" not in obs.drain().counts
+    monkeypatch.setattr(hybrid, "uses_state_step_kernel", lambda t: True)
+    model.decode_step(ZAMBA, params, cache, tok, S + 1, device="cpu")
+    eager = obs.drain().counts
+    model.count_decode_step(ZAMBA, cache, S + 1)
+    obs.disable()
+    assert eager["mamba.state_step_kernel"] == ZAMBA.n_layers
+    assert obs.drain().counts == eager
 
 
 def test_default_mamba2_kernel_route_is_the_one_call_before_it():
